@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of lidiff_tpu for NVIDIA Hopper GPUs.
 
-The layout mirrors `lidiff_tpu/` (ops/, models/, diffusion/, config.py) so
-each module's counterpart is easy to find. The JAX package stays the
-reference; this package imports torch, numpy and the standard library only.
+The layout mirrors `lidiff_tpu/` (ops/, models/, diffusion/, data/,
+training/, config.py, train.py) so each module's counterpart is easy to
+find. The JAX package stays the reference; this package imports torch,
+numpy and the standard library only.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; on the
 CPU every hand-written kernel is replaced by its plain PyTorch version.

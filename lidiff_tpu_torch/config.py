@@ -1,12 +1,16 @@
-"""Config handling with the reference YAML schema (counterpart of
-lidiff_tpu/config.py:34-134).
+"""Config handling with the reference schema (counterpart of
+lidiff_tpu/config.py:34-147).
 
 The port keeps its own copy of the capacity tables: it imports nothing of
-the JAX package. `yaml` is imported only by `load_config`, so
-`finalize_config` on a dict works where PyYAML is not installed.
+the JAX package. A config file is YAML or, by its `.json` suffix, JSON with
+the same sections; `yaml` is imported only where a YAML file is read, so
+JSON configs work where PyYAML is not installed.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 
 def _round128(x: int) -> int:
@@ -55,9 +59,23 @@ DEFAULT_TPU = {
 
 
 def load_config(path: str) -> dict:
-    import yaml
+    """Read a `.json` or YAML config; the TRAIN_DATABASE environment
+    variable overrides `data.data_dir`, as in the reference."""
     with open(path) as f:
-        return finalize_config(yaml.safe_load(f))
+        if path.endswith(".json"):
+            cfg = json.load(f)
+        else:
+            import yaml
+            cfg = yaml.safe_load(f)
+    if os.environ.get("TRAIN_DATABASE"):
+        cfg["data"]["data_dir"] = os.environ["TRAIN_DATABASE"]
+    return finalize_config(cfg)
+
+
+def save_config(cfg: dict, path: str) -> None:
+    """Write `cfg` as JSON, which `load_config` reads back by its suffix."""
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2)
 
 
 def finalize_config(cfg: dict) -> dict:

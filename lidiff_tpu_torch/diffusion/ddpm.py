@@ -59,3 +59,14 @@ def make_ddpm(name: str, t_steps: int, beta_start: float | None = None,
         posterior_mean_coef2=f32((1.0 - ac_prev) * np.sqrt(alphas)
                                  / (1.0 - ac)),
     )
+
+
+def q_sample(coeffs: DDPMCoeffs, x: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) for x [B, N, 3] and t [B]. In the
+    offset formulation the caller passes x = zeros and adds the result to
+    the anchor points."""
+    t = t.long()
+    sa = coeffs.sqrt_alphas_cumprod[t][:, None, None]
+    so = coeffs.sqrt_one_minus_alphas_cumprod[t][:, None, None]
+    return sa * x + so * noise

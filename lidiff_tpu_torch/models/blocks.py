@@ -1,12 +1,16 @@
-"""Eval-mode building blocks over the sparse engine (counterpart of
+"""Building blocks over the sparse engine (counterpart of
 lidiff_tpu/models/blocks.py).
 
 Submodules carry the flax names of the JAX package (`SparseConv_0`,
 `MaskedBatchNorm_1`, `Dense_0`, ...) so that `lidiff_tpu_torch.convert`
 maps a JAX parameter tree onto them one to one. Grouped modules take the
 group count G at call time: G feature sets, group-major in [V, G*C], share
-every parameter. BatchNorm runs with its running statistics only; where it
-follows a conv it is folded into the conv's weights and bias.
+every parameter. `module.training` takes the place of the JAX modules'
+`train` argument. In eval mode BatchNorm runs with its running statistics
+and, where it follows a conv, is folded into the conv's weights and bias. In
+train mode the conv, BatchNorm over the batch moments and ReLU run one after
+the other, the convs differentiate through `Conv3ColumnsFunction`, and a
+group count above 1 raises: grouped BatchNorm is inference-only.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lidiff_tpu_torch.ops.grid import ColumnKernelMap, DownMap, LevelGeom
-from lidiff_tpu_torch.ops.sparse_conv import (sparse_conv_columns,
+from lidiff_tpu_torch.ops.sparse_conv import (masked_moments,
+                                              sparse_conv_columns,
                                               sparse_conv_down,
                                               sparse_conv_transpose)
 
@@ -70,11 +75,16 @@ class SparseConvTranspose(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over valid voxels (running statistics)."""
+    """BatchNorm over valid voxels, torch BatchNorm1d semantics: in train
+    mode the batch's biased variance normalizes and the running estimates
+    take the unbiased one with momentum 0.1; in eval mode the running
+    statistics normalize."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -86,7 +96,18 @@ class MaskedBatchNorm(nn.Module):
         return k, self.bias - self.mean * k
 
     def forward(self, feats, mask, groups: int):
-        mean, var = self.mean.repeat(groups), self.var.repeat(groups)
+        if self.training:
+            if groups != 1:
+                raise ValueError("grouped BatchNorm is inference-only")
+            # the gradient flows through the batch moments
+            mean, var, cnt = masked_moments(feats, mask)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * unbiased)
+        else:
+            mean, var = self.mean.repeat(groups), self.var.repeat(groups)
         scale, bias = self.scale.repeat(groups), self.bias.repeat(groups)
         if feats.dtype == torch.float32:
             y = (feats - mean) * torch.rsqrt(var + self.eps) * scale + bias
@@ -100,8 +121,8 @@ class MaskedBatchNorm(nn.Module):
 
 
 class ConvBNReLU(nn.Module):
-    """Conv + BN + ReLU with BN folded into the conv; taps=8 is the
-    ks=2/stride-2 down conv."""
+    """Conv + BN + ReLU, BN folded into the conv in eval mode; taps=8 is
+    the ks=2/stride-2 down conv."""
 
     def __init__(self, cin: int, cout: int, taps: int = 27,
                  compute_dtype=torch.float32):
@@ -110,6 +131,9 @@ class ConvBNReLU(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cout)
 
     def forward(self, feats, kmap, out_mask, groups: int):
+        if self.training:
+            x = self.SparseConv_0(feats, kmap, out_mask, groups)
+            return F.relu(self.MaskedBatchNorm_0(x, out_mask, groups))
         k, c = self.MaskedBatchNorm_0.affine()
         return self.SparseConv_0(feats, kmap, out_mask, groups, w_scale=k,
                                  bias=c, relu=True)
@@ -143,11 +167,17 @@ class ResidualBlock(nn.Module):
             self.MaskedBatchNorm_2 = MaskedBatchNorm(cout)
 
     def forward(self, feats, kmap, mask, groups: int):
-        k1, c1 = self.MaskedBatchNorm_0.affine()
-        x = self.SparseConv_0(feats, kmap, mask, groups, w_scale=k1, bias=c1,
-                              relu=True)
-        k2, c2 = self.MaskedBatchNorm_1.affine()
-        x = self.SparseConv_1(x, kmap, mask, groups, w_scale=k2, bias=c2)
+        if self.training:
+            x = self.SparseConv_0(feats, kmap, mask, groups)
+            x = F.relu(self.MaskedBatchNorm_0(x, mask, groups))
+            x = self.SparseConv_1(x, kmap, mask, groups)
+            x = self.MaskedBatchNorm_1(x, mask, groups)
+        else:
+            k1, c1 = self.MaskedBatchNorm_0.affine()
+            x = self.SparseConv_0(feats, kmap, mask, groups, w_scale=k1,
+                                  bias=c1, relu=True)
+            k2, c2 = self.MaskedBatchNorm_1.affine()
+            x = self.SparseConv_1(x, kmap, mask, groups, w_scale=k2, bias=c2)
         if hasattr(self, "Dense_0"):
             # 1x1 conv per group, in the activation dtype
             V = feats.shape[0]

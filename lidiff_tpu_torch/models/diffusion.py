@@ -1,5 +1,10 @@
-"""The LiDiff diffusion task, sampling side (counterpart of
+"""The LiDiff diffusion task (counterpart of
 lidiff_tpu/models/diffusion.py:35-266).
+
+Training: `loss_fn` noises the offsets around the anchor points at a random
+timestep per item, drops the conditioning for the whole batch with
+probability `uncond_prob`, runs the train-mode model and returns the noise
+prediction's MSE plus the mean/std regularizer.
 
 Classifier-free completion sampling: the partial-scan encoder runs once per
 completion for the conditioned bank and for the unconditioned (zeros) bank,
@@ -9,11 +14,13 @@ uncond denoiser streams fused as G=2 groups over one shared pyramid.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from lidiff_tpu_torch import resolve_device
-from lidiff_tpu_torch.diffusion.ddpm import make_ddpm
+from lidiff_tpu_torch.diffusion.ddpm import make_ddpm, q_sample
 from lidiff_tpu_torch.diffusion.dpm_solver import (DPMSolver, init_state,
                                                    make_dpm_solver,
                                                    solver_step)
@@ -41,9 +48,31 @@ class DiffusionModel(nn.Module):
     def denoise(self, pyr_full: Pyramid, banks, t):
         return self.denoiser(pyr_full, banks, t)
 
+    def forward(self, pyr_full: Pyramid, pyr_part: Pyramid, t):
+        """Encode the partial scan and denoise against it (G=1)."""
+        part_feats = self.encode_partial(pyr_part)
+        return self.denoise(pyr_full,
+                            [(part_feats, pyr_part.levels[-1].geom)], t)
+
+
+def _eval_no_grad(method):
+    """Run a DiffusionTask method with the model in eval mode and autograd
+    off, and restore the model's mode afterwards: sampling after training
+    must not update the BatchNorm running statistics."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return method(self, *args, **kwargs)
+        finally:
+            self.model.train(was_training)
+    return wrapper
+
 
 class DiffusionTask:
-    """Config, model and the sampling entry points.
+    """Config, model, the training loss and the sampling entry points.
 
     Runs on `device` (default: the card) with `compute_dtype` (default: the
     config's `tpu.compute_dtype`). The weights are a seeded random init
@@ -77,6 +106,8 @@ class DiffusionTask:
         self.part_caps = list(cfg["tpu"]["part_capacities"])
         self.num_levels = int(cfg["tpu"]["num_levels"])
         self.w_uncond = float(cfg["train"]["uncond_w"])
+        self.uncond_prob = float(cfg["train"]["uncond_prob"])
+        self.reg_weight = float(cfg["diff"]["reg_weight"])
 
     # ---------------- geometry ----------------
 
@@ -94,9 +125,62 @@ class DiffusionTask:
         tiny = [max(8, points.shape[0] * 2)] * self.num_levels
         return build_pyramid(points, self.resolution, tiny, self.num_levels)
 
+    # ---------------- training ----------------
+
+    def loss_fn(self, batch: dict, generator: torch.Generator | None = None,
+                *, noise=None, t=None, drop=None):
+        """One training loss evaluation; puts the model in train mode, so
+        the BatchNorm running statistics move.
+
+        batch: {'pcd_full': [B, N, 3], 'pcd_part': [B, Np, 3]} on the
+        task's device. Random draws come from `generator` (on that device);
+        `noise` ([B, N, 3]), `t` ([B] int timesteps) and `drop` (bool, the
+        classifier-free coin) replace them, so tests can feed both packages
+        the same numbers. Returns (loss, metrics); the metrics are detached
+        0-d tensors."""
+        x0, part = batch["pcd_full"], batch["pcd_part"]
+        B = x0.shape[0]
+        dev = x0.device
+        if generator is None and (noise is None or t is None
+                                  or drop is None):
+            raise ValueError("pass a torch.Generator, or noise, t and drop")
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, device=dev,
+                                dtype=x0.dtype)
+        if t is None:
+            t = torch.randint(0, self.coeffs.t_steps, (B,),
+                              generator=generator, device=dev)
+        # point-local q-sample: noise the offsets around the anchors
+        x_t = x0 + q_sample(self.coeffs, torch.zeros_like(x0), t, noise)
+        # classifier-free dropout: one coin for the whole batch; a
+        # single-item batch never drops
+        if drop is None:
+            drop = (torch.rand((), generator=generator, device=dev)
+                    < self.uncond_prob) & (B > 1)
+        keep = ~torch.as_tensor(drop, dtype=torch.bool, device=dev)
+        pyr_full = self.pyramid_full(x_t)
+        pyr_part = self.pyramid_part(part * keep.to(part.dtype))
+
+        self.model.train()
+        eps = self.model(pyr_full, pyr_part, t)
+
+        loss_mse = ((eps - noise) ** 2).mean()
+        loss_mean = eps.mean() ** 2
+        # the population std, as jnp.std; torch.std defaults to the sample's
+        loss_std = (eps.std(correction=0) - 1.0) ** 2
+        loss = loss_mse + self.reg_weight * (loss_mean + loss_std)
+        ovf = (pyr_full.overflows().sum() + pyr_part.overflows().sum())
+        wovf = (pyr_full.window_overflows().sum()
+                + pyr_part.window_overflows().sum())
+        metrics = {"loss": loss, "loss_mse": loss_mse,
+                   "loss_mean": loss_mean, "loss_std": loss_std,
+                   "overflow_vox": ovf.float(),
+                   "overflow_window": wovf.float()}
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
     # ---------------- sampling ----------------
 
-    @torch.no_grad()
+    @_eval_no_grad
     def encode_banks(self, part):
         """Conditioning banks of one completion, computed once:
         (feats_c, geom_c, feats_u, geom_u)."""
@@ -107,7 +191,7 @@ class DiffusionTask:
         return (feats_c, pyr_c.levels[-1].geom,
                 feats_u, pyr_u.levels[-1].geom)
 
-    @torch.no_grad()
+    @_eval_no_grad
     def denoise_pair(self, points, feats_c, geom_c, feats_u, geom_u, t: int,
                      w_uncond: float | None = None):
         """Classifier-free guided noise prediction at the current cloud, as
@@ -121,7 +205,7 @@ class DiffusionTask:
         eps_c, eps_u = eps[..., 0, :], eps[..., 1, :]
         return eps_u + w * (eps_c - eps_u)
 
-    @torch.no_grad()
+    @_eval_no_grad
     def sample(self, x_init, part, generator: torch.Generator | None, *,
                offset0=None, noise=None, w_uncond: float | None = None,
                solver: DPMSolver | None = None):

@@ -1,6 +1,9 @@
-"""Sparse-voxel networks of the sampling path (counterpart of
-lidiff_tpu/models/minkunet.py:35-225): the partial-scan encoder
-`MinkGlobalEnc` and the conditional denoiser `MinkUNetDiff`.
+"""Sparse-voxel networks of the sampling and training paths (counterpart
+of lidiff_tpu/models/minkunet.py:35-225): the partial-scan encoder
+`MinkGlobalEnc` and the conditional denoiser `MinkUNetDiff`. In train mode
+(`module.training`) the activations stay float32 and only the convs and
+GEMMs cast to the compute dtype; nothing is rematerialized in the backward
+pass (`tpu.remat` of the config is read by nobody here).
 
 Channel plan cs = [32, 32, 64, 128, 256, 256, 128, 96, 96] scaled by `cr`.
 """
@@ -10,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lidiff_tpu_torch.models.blocks import MLP, DownStage, Stem, UpStage
@@ -28,7 +32,7 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     args = t.float()[:, None] * freqs[None, :]
     emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
     if dim % 2 == 1:
-        emb = torch.nn.functional.pad(emb, (0, 1))
+        emb = F.pad(emb, (0, 1))
     return emb
 
 
@@ -77,7 +81,14 @@ class StageGate(nn.Module):
 
     def forward(self, feats, geom: VoxelGeom, match, temp_emb, groups: int):
         p = self.latent(match)                         # [V, (G,) c4]
-        t_vox = self.temp(temp_emb)[geom.coords[:, 0].long()]  # by batch id
+        # each voxel takes its batch item's row of temp(t). Written as a
+        # one-hot product (exact: one 1.0 per row) and not as an indexed
+        # gather, whose backward adds all V rows into B rows one after the
+        # other on the card; this one's backward is one GEMM over the voxels
+        t_emb = self.temp(temp_emb)                    # [B, c4]
+        items = torch.arange(t_emb.shape[0], device=t_emb.device)
+        onehot = (geom.coords[:, :1] == items).to(t_emb.dtype)    # [V, B]
+        t_vox = onehot @ t_emb
         if groups > 1:
             t_vox = t_vox[:, None, :].expand(p.shape)
         w = self.latemp(torch.cat([t_vox, p] if self.swap else [p, t_vox],
@@ -128,8 +139,13 @@ class MinkUNetDiff(nn.Module):
         group; t: [B] int timesteps."""
         G = len(banks)
         cd = self.compute_dtype
-        # bf16 eval: the activation stream runs in the compute dtype
-        banks = [(pf.to(cd), pg) for pf, pg in banks]
+        # bf16 eval: the activation stream runs in the compute dtype;
+        # training keeps float32 activations
+        # (lidiff_tpu/models/minkunet.py:153,188)
+        vox_feats = pyr.vox_feats
+        if not self.training:
+            banks = [(pf.to(cd), pg) for pf, pg in banks]
+            vox_feats = vox_feats.to(cd)
         lv = pyr.levels
         temp = timestep_embedding(t, self.out_dim)
 
@@ -145,7 +161,7 @@ class MinkUNetDiff(nn.Module):
         match = [level_match(l) for l in lv]
 
         # the stem input is the same for every group: run it once, tile
-        x0 = self.Stem_0(pyr.vox_feats.to(cd), lv[0])
+        x0 = self.Stem_0(vox_feats, lv[0])
         x0 = x0.repeat(1, G)
         g0 = self.gate_s1(x0, lv[0].geom, match[0], temp, G)
         x1 = self.DownStage_0(g0, lv[0], lv[1], G)

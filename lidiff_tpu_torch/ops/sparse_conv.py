@@ -1,5 +1,5 @@
-"""Sparse convolutions over precomputed kernel maps, eval paths
-(counterpart of lidiff_tpu/ops/sparse_conv.py:92-431).
+"""Sparse convolutions over precomputed kernel maps (counterpart of
+lidiff_tpu/ops/sparse_conv.py:92-460).
 
 `feats` of a grouped conv is [V, G*C], group-major: G independent feature
 sets over the same geometry, convolved with the same weights. The sampler
@@ -9,7 +9,15 @@ The 27-tap column conv is kernel A1 (`csrc/conv3_columns.cu`) for CUDA
 tensors and its plain PyTorch version, `conv3_columns_plain`, for CPU
 tensors. Both accumulate all 27 taps in float32 and cast once, as the TPU
 kernel does (lidiff_tpu/ops/pallas_conv.py:800-832). The down and transpose
-convs are one dense GEMM each plus a gather or scatter, in plain PyTorch.
+convs are one dense GEMM each plus a gather or scatter, in plain PyTorch,
+and differentiate through autograd.
+
+Training differentiates the column conv through `Conv3ColumnsFunction`
+(kernel A2, counterpart of conv_columns_pallas_ad,
+lidiff_tpu/ops/pallas_conv.py:667-719): the feats gradient is kernel A1 on
+the masked cotangent with tap-reversed, transposed weights over the same
+map, and the weight gradient is kernel A3 (`csrc/conv3_columns_dw.cu`),
+with `conv3_columns_dw_plain` as its plain version.
 """
 
 from __future__ import annotations
@@ -37,6 +45,30 @@ _conv3_kernel = native.Kernel(
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # V C Co G
      ctypes.c_int, ctypes.c_void_p])                     # relu, stream
 
+_conv3_dw_kernel = native.Kernel(
+    "conv3_columns_dw", "conv3_columns_dw",
+    [ctypes.c_int,                                       # dtype code
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feats, g, col
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # hit, mask, nvalid
+     ctypes.c_void_p,                                    # dw
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # V C Co G
+     ctypes.c_void_p])                                   # stream
+
+
+def _column_slabs(f, col_idx, hit):
+    """For each of the 9 columns, the slab [V, 3, G, C] of float32 feats
+    `f` [V, G, C]: the rows p, p+m0, p+m0+m1 of the column's three z-taps,
+    zeroed where the tap's hit is 0."""
+    V = f.shape[0]
+    m0 = hit[:, 0::3].long()
+    m1 = hit[:, 1::3].long()
+    p = col_idx.long()
+    for col in range(9):
+        rows = torch.stack([p[:, col], p[:, col] + m0[:, col],
+                            p[:, col] + m0[:, col] + m1[:, col]], 1)
+        rows = rows.clamp(max=V - 1)
+        yield f[rows] * hit[:, 3 * col:3 * col + 3, None, None]
+
 
 def conv3_columns_plain(feats, col_idx, hit, weights, out_mask, groups,
                         bias=None, relu=False, out_dtype=None):
@@ -49,17 +81,10 @@ def conv3_columns_plain(feats, col_idx, hit, weights, out_mask, groups,
     V = feats.shape[0]
     _, C, Co = weights.shape
     G = groups
-    f = feats.float().reshape(V, G, C)
     w3 = weights.float().reshape(9, 3 * C, Co)
-    m0 = hit[:, 0::3].long()
-    m1 = hit[:, 1::3].long()
-    p = col_idx.long()
     acc = torch.zeros(V * G, Co, dtype=torch.float32, device=feats.device)
-    for col in range(9):
-        rows = torch.stack([p[:, col], p[:, col] + m0[:, col],
-                            p[:, col] + m0[:, col] + m1[:, col]], 1)
-        rows = rows.clamp(max=V - 1)
-        slab = f[rows] * hit[:, 3 * col:3 * col + 3, None, None]  # [V,3,G,C]
+    slabs = _column_slabs(feats.float().reshape(V, G, C), col_idx, hit)
+    for col, slab in enumerate(slabs):
         slab = slab.permute(0, 2, 1, 3).reshape(V * G, 3 * C)
         acc += slab @ w3[col]
     out = acc.reshape(V, G, Co)
@@ -77,8 +102,26 @@ def conv3_columns(feats, col_idx, hit, weights, out_mask, groups, *,
 
     `nvalid` ([] int32 on the device) lets the kernel write whole tiles of
     rows at or past it as zeros without reading anything; those rows must
-    be masked out by `out_mask` (valid voxels come first)."""
+    be masked out by `out_mask` (valid voxels come first).
+
+    With autograd enabled and feats or weights requiring a gradient, the
+    call goes through `Conv3ColumnsFunction`; the bias/ReLU epilogue is the
+    eval-only BN fold and raises there."""
     out_dtype = out_dtype or feats.dtype
+    if torch.is_grad_enabled() and (feats.requires_grad
+                                    or weights.requires_grad):
+        if bias is not None or relu:
+            raise ValueError("conv3_columns: the bias/ReLU epilogue is "
+                             "eval-only and has no gradient")
+        return Conv3ColumnsFunction.apply(feats, weights, col_idx, hit,
+                                          out_mask, nvalid, groups, out_dtype)
+    return _conv3_run(feats, col_idx, hit, weights, out_mask, groups, bias,
+                      relu, out_dtype, nvalid)
+
+
+def _conv3_run(feats, col_idx, hit, weights, out_mask, groups, bias, relu,
+               out_dtype, nvalid):
+    """One launch of kernel A1 (CUDA) or one plain conv (CPU); no autograd."""
     if feats.device.type == "cpu":
         return conv3_columns_plain(feats, col_idx, hit, weights, out_mask,
                                    groups, bias, relu, out_dtype)
@@ -117,6 +160,124 @@ def conv3_columns(feats, col_idx, hit, weights, out_mask, groups, *,
                   native.ptr(nvalid), native.ptr(out), V, C, Co, G,
                   int(relu), native.stream(feats.device))
     return out
+
+
+def conv3_columns_dw_plain(feats, g, col_idx, hit, out_mask, groups):
+    """Plain PyTorch version of kernel A3, the column conv's weight
+    gradient (the math of conv_columns_pallas_dw_v2,
+    lidiff_tpu/ops/pallas_conv.py:568):
+
+        dW[k, c, co] = sum_o sum_g hit(o, k) feats_g[idx(o, k), c] g_g[o, co]
+
+    with the cotangent `g` [V, G*Co] masked by `out_mask`: per column and
+    group one slab^T @ g product, float32 throughout. Returns [27, C, Co]
+    float32."""
+    V = feats.shape[0]
+    G = groups
+    C = feats.shape[1] // G
+    Co = g.shape[1] // G
+    gm = torch.where(out_mask[:, None], g.float(), 0.0).reshape(V, G, Co)
+    dw = torch.zeros(9, 3 * C, Co, dtype=torch.float32, device=feats.device)
+    slabs = _column_slabs(feats.float().reshape(V, G, C), col_idx, hit)
+    for col, slab in enumerate(slabs):
+        for gi in range(G):
+            dw[col] += slab[:, :, gi].reshape(V, 3 * C).T @ gm[:, gi]
+    return dw.reshape(27, C, Co)
+
+
+def conv3_columns_dw(feats, g, col_idx, hit, out_mask, groups, *,
+                     nvalid=None):
+    """Kernel A3 on CUDA tensors, its plain version on CPU tensors.
+
+    feats [V, G*C] in the compute dtype; the cotangent `g` [V, G*Co] is
+    cast to feats' dtype first, as the TPU kernel does
+    (lidiff_tpu/ops/pallas_conv.py:604). Rows at or past `nvalid` must be
+    masked out by `out_mask`. Returns dW [27, C, Co] float32; blocks add
+    their partial sums with float32 atomics, so the order of the sum over
+    rows changes from run to run."""
+    g = g.to(feats.dtype).contiguous()
+    if feats.device.type == "cpu":
+        return conv3_columns_dw_plain(feats, g, col_idx, hit, out_mask,
+                                      groups)
+    if feats.device.type != "cuda":
+        raise ValueError(f"conv3_columns_dw: unsupported device "
+                         f"{feats.device}")
+    V, G = feats.shape[0], groups
+    if feats.dtype not in _DTYPE_CODE:
+        raise ValueError(f"conv3_columns_dw: dtype {feats.dtype}")
+    if G not in (1, 2) or feats.shape[1] % G or g.shape[1] % G:
+        raise ValueError(f"conv3_columns_dw: G={G} does not split the "
+                         "channels")
+    C, Co = feats.shape[1] // G, g.shape[1] // G
+    if g.shape[0] != V or col_idx.shape != (V, 9) or hit.shape != (V, 27) \
+            or out_mask.shape != (V,) or V == 0:
+        raise ValueError("conv3_columns_dw: shape mismatch")
+    if C > MAX_CIN or Co > MAX_CIN:
+        raise ValueError(f"conv3_columns_dw: C={C} or Co={Co} > {MAX_CIN}")
+    if col_idx.dtype != torch.int32 or hit.dtype != torch.bool \
+            or out_mask.dtype != torch.bool:
+        raise ValueError("conv3_columns_dw: want int32 col_idx, bool "
+                         "hit/mask")
+    if (feats.data_ptr() | g.data_ptr()) % 16:
+        raise ValueError("conv3_columns_dw: feats and g must start on a "
+                         "16-byte boundary (the kernel's vector loads)")
+    if nvalid is None:
+        nvalid = torch.full((), V, dtype=torch.int32, device=feats.device)
+    nvalid = nvalid.to(torch.int32)
+    native.check_cuda("conv3_columns_dw", feats, g, col_idx, hit, out_mask,
+                      nvalid)
+    dw = torch.zeros(27, C, Co, dtype=torch.float32, device=feats.device)
+    _conv3_dw_kernel(_DTYPE_CODE[feats.dtype], native.ptr(feats),
+                     native.ptr(g), native.ptr(col_idx), native.ptr(hit),
+                     native.ptr(out_mask), native.ptr(nvalid), native.ptr(dw),
+                     V, C, Co, G, native.stream(feats.device))
+    return dw
+
+
+class Conv3ColumnsFunction(torch.autograd.Function):
+    """Kernel A2: the differentiable column conv, no epilogue (BN runs
+    separately in training).
+
+    The backward rule is the TPU package's (_ad_bwd,
+    lidiff_tpu/ops/pallas_conv.py:691-716), not autograd of the plain conv:
+    the cotangent is masked by `out_mask` and cast to feats' dtype; the
+    feats gradient is the same conv on it with the weights tap-reversed and
+    transposed, over the same map, in feats' dtype; the weight gradient is
+    kernel A3, cast to the weights' dtype. The flipped conv is the exact
+    gradient where the map is symmetric (voxel i is o's tap k exactly when
+    o is i's tap 26 - k), which holds for a level's own 27-tap map with
+    `out_mask` the level's mask. CPU tensors take the plain versions of both
+    kernels under the same rule."""
+
+    # feats-gradient launches of kernel A1 made by `backward` (they also
+    # count as launches of A1)
+    launches = 0
+
+    @staticmethod
+    def forward(ctx, feats, weights, col_idx, hit, out_mask, nvalid, groups,
+                out_dtype):
+        ctx.save_for_backward(feats, weights, col_idx, hit, out_mask, nvalid)
+        ctx.groups = groups
+        return _conv3_run(feats, col_idx, hit, weights, out_mask, groups,
+                          None, False, out_dtype, nvalid)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weights, col_idx, hit, out_mask, nvalid = ctx.saved_tensors
+        g = torch.where(out_mask[:, None], g, 0.0).to(feats.dtype)
+        g = g.contiguous()
+        df = dw = None
+        if ctx.needs_input_grad[0]:
+            w_rev = weights.flip(0).transpose(1, 2).contiguous()
+            before = _conv3_kernel.launches
+            df = _conv3_run(g, col_idx, hit, w_rev, out_mask, ctx.groups,
+                            None, False, feats.dtype, nvalid)
+            Conv3ColumnsFunction.launches += _conv3_kernel.launches - before
+        if ctx.needs_input_grad[1]:
+            dw = conv3_columns_dw(feats, g, col_idx, hit, out_mask,
+                                  ctx.groups, nvalid=nvalid)
+            dw = dw.to(weights.dtype)
+        return df, dw, None, None, None, None, None, None
 
 
 def sparse_conv_columns(feats, kmap: ColumnKernelMap, weights, out_mask, *,
@@ -189,3 +350,18 @@ def sparse_conv_transpose(coarse_feats, parent_idx, tap, weights, fine_mask,
     o = y[pidx, :, tap.long()]                        # [V_f, G, Cout]
     ok = (parent_idx < Vc) & fine_mask
     return (o * ok[:, None, None]).reshape(-1, G * Cout)
+
+
+def masked_moments(feats, mask):
+    """Per-channel mean and biased variance over the valid voxels, and
+    their count (counterpart of lidiff_tpu/ops/sparse_conv.py:434-460,
+    one device). The sums are float32 whatever feats' dtype;
+    var = max(s2 / cnt - mean^2, 0) and cnt = max(sum(mask), 1)."""
+    mv = mask.to(feats.dtype)
+    fm = feats * mv[:, None]
+    s1 = fm.float().sum(0)
+    s2 = (fm * feats).float().sum(0)
+    cnt = mv.float().sum().clamp(min=1.0)
+    mean = s1 / cnt
+    var = (s2 / cnt - mean * mean).clamp(min=0.0)
+    return mean, var, cnt

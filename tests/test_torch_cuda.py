@@ -11,7 +11,17 @@ A1 float32 within 1e-5 of max|ref| (sum order), bf16 within one bf16 ulp
 plus 1e-4 of max|ref|. The bf16 down and transpose convs (plain PyTorch on
 both sides, atomic scatter order on the card) are held to the bound stated
 in `sparse_conv_down`: n * 2^-7 * A per parent of n children, A the sum of
-|feat| * |weight| over its children and channels."""
+|feat| * |weight| over its children and channels.
+
+A3 (the weight gradient) is held to its plain version on the same bf16 or
+float32 operands within 1e-4 of max|ref| in float32 and 5e-4 in bf16: both
+sum float32 products, the kernel over blocks with atomics in an order that
+changes from run to run, and in bf16 on the tensor cores, which truncate
+where they add to the float32 accumulator.
+The differentiable conv (A2) is held to the same backward rule on the CPU:
+its feats gradient like A1 (float32 1e-5 of max|ref|; bf16 one bf16 ulp
+plus 1e-4 of max|ref|), its weight gradient like A3 plus, in bf16, the one
+rounding of dW to the weights' dtype."""
 
 import math
 
@@ -117,6 +127,92 @@ def test_conv3_columns_rejects_bad_input(dev):
 
 
 BF16_ULP = 2.0 ** -7
+
+
+def _grad_inputs(dev, dtype, cin, cout, G, n=300, caps=(1024, 512)):
+    """A level with tiles past nvalid, masked feats, a cotangent whose
+    masked rows are non-zero."""
+    pyr = _pyramid(dev, n, list(caps), seed=cin + cout)
+    lvl = pyr.levels[0]
+    g, km = lvl.geom, lvl.kmap3
+    gen = torch.Generator(device=dev).manual_seed(cin * cout + G)
+    f = torch.randn(g.capacity, G * cin, generator=gen, device=dev)
+    f = (f * g.mask[:, None]).to(dtype)
+    cot = torch.randn(g.capacity, G * cout, generator=gen, device=dev)
+    w = (torch.randn(27, cin, cout, generator=gen, device=dev)
+         / math.sqrt(27 * cin)).to(dtype)
+    return g, km, f, w, cot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,G,n,caps", [
+    (3, 8, 1, 300, (1024, 512)), (5, 24, 2, 300, (1024, 512)),
+    (16, 72, 2, 300, (1024, 512)), (40, 64, 1, 300, (1024, 512)),
+    (136, 8, 2, 300, (1024, 512)), (72, 130, 1, 300, (1024, 512)),
+    (16, 24, 1, 5, (16, 8))])
+def test_conv3_columns_dw(dev, dtype, cin, cout, G, n, caps):
+    g, km, f, _, cot = _grad_inputs(dev, dtype, cin, cout, G, n, caps)
+    assert int(km.nvalid) < g.capacity
+    assert bool((cot[~g.mask] != 0).any())     # the kernel must mask these
+    args = (f, cot.to(dtype), km.col_idx, km.hit, g.mask, G)
+    got = sparse_conv.conv3_columns_dw(*args, nvalid=km.nvalid)
+    ref = sparse_conv.conv3_columns_dw_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == (27, cin, cout)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    tol = 1e-4 if dtype == torch.float32 else 5e-4
+    assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("cin,cout,G", [(5, 24, 2), (16, 72, 1),
+                                        (136, 16, 2)])
+def test_conv3_function_backward(dev, dtype, out_dtype, cin, cout, G):
+    """forward, df and dW through the Function on the card against the
+    Function on the CPU (the plain versions under the same rule)."""
+    g, km, f, w, cot = _grad_inputs(dev, dtype, cin, cout, G)
+    launches = (sparse_conv._conv3_kernel.launches,
+                sparse_conv._conv3_dw_kernel.launches)
+
+    def run(device):
+        ff = f.clone().to(device).requires_grad_(True)
+        ww = w.clone().to(device).requires_grad_(True)
+        out = sparse_conv.conv3_columns(
+            ff, km.col_idx.to(device), km.hit.to(device), ww,
+            g.mask.to(device), G, out_dtype=out_dtype,
+            nvalid=km.nvalid.to(device))
+        assert out.grad_fn is not None and out.dtype == out_dtype
+        out.backward(cot.to(device).to(out_dtype))
+        return [t.detach().float().cpu() for t in (out, ff.grad, ww.grad)]
+
+    got, ref = run(dev), run("cpu")
+    assert sparse_conv._conv3_kernel.launches == launches[0] + 2
+    assert sparse_conv._conv3_dw_kernel.launches == launches[1] + 1
+    for name, a, b in zip(("out", "df", "dw"), got, ref):
+        scale = float(b.abs().max())
+        err = (a - b).abs()
+        if dtype == torch.float32:
+            tol = 1e-4 if name == "dw" else 1e-5
+            assert float(err.max()) <= tol * scale, name
+        else:
+            ulp = 0.0 if name == "out" else BF16_ULP
+            tol = 5e-4 if name == "dw" else 1e-4
+            assert bool((err <= ulp * b.abs() + tol * scale).all()), name
+
+
+def test_conv3_function_skips_df_and_rejects_epilogue(dev):
+    g, km, f, w, _ = _grad_inputs(dev, torch.float32, 8, 16, 1)
+    w.requires_grad_(True)
+    n = sparse_conv._conv3_kernel.launches
+    out = sparse_conv.conv3_columns(f, km.col_idx, km.hit, w, g.mask, 1,
+                                    nvalid=km.nvalid)
+    out.sum().backward()
+    assert w.grad is not None
+    assert sparse_conv._conv3_kernel.launches == n + 1   # no df launch
+    with pytest.raises(ValueError):
+        sparse_conv.conv3_columns(f, km.col_idx, km.hit, w, g.mask, 1,
+                                  relu=True)
 
 
 def _down_inputs(dev, cin, cout, G, dtype, seed):
