@@ -24,7 +24,19 @@ the kernels are built for sm_90a):
      1), split into forward, backward and optimizer time, with launch
      counts, peak memory and a profile of one step;
   7. runs the `lidiff_tpu_torch.train` CLI on a small synthetic KITTI tree:
-     two steps, then a resume that takes a third.
+     two steps, then a resume that takes a third;
+  8. holds the pruned 1-NN matcher (kernel C2 and its window-bound kernel)
+     against kernel C1 on every valid query and against the plain versions
+     on 65,536 queries, at the refiner's chamfer shape (1.08M x 360k and
+     back), on a two-item batch with invalid rows, and at the sampling
+     shapes; holds the chamfer loss (exact and grid) against the CPU, and a
+     small f32 refiner training step on the card against the CPU;
+  9. takes 2 + 3 optimizer steps on `RefineTask` through
+     `Trainer.train_step` at full width (180k jittered points, up_factor 6,
+     a 360k-point target), split into model forward, chamfer index passes,
+     the rest of the loss, backward and optimizer;
+ 10. runs the `lidiff_tpu_torch.train_refine` CLI on the small tree: sanity
+     validation, two steps, a resume to step 3, then `--test`.
 It prints one line per phase, then a {"kernels": [...]} JSON line, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
@@ -34,6 +46,7 @@ outside a checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -76,6 +89,20 @@ TRAIN_WARMUP = 2            # untimed optimizer steps first: the first
                             # its forward phase with one warm-up step
 TRAIN_STEPS = 3             # timed optimizer steps
 CONVS_PER_STEP = 52         # column convs: 34 in the denoiser, 18 encoder
+REFINE_UP = 6               # offsets per point: 180k points -> 1.08M
+C2_SUBSET_TILES = 256       # whole query tiles (65,536 queries) held
+                            # against the plain versions
+PLAIN_PAIRS = 1 << 28       # (query, ref) pairs per block of nn_match_plain
+CHAMFER_GRID_RTOL = 1e-3    # grid against exact loss, as tests/test_chamfer.py
+CHAMFER_CPU_RTOL = 1e-5     # card against CPU: float32 sums in other orders
+CHOICES_DIFFER = 1e-4       # share of ReLU signs, and of chamfer picks, that
+                            # may fall the other way on the CPU: inputs
+                            # within float32 rounding of zero, resp. points
+                            # within it of a grid cell's edge
+
+
+# kernels whose entry point is not named after their source file
+NAMES = {"C2w": "nn_window_bound"}
 
 
 def log(msg: str) -> None:
@@ -417,8 +444,8 @@ def check_small_reference(cfg_mod, diffusion, dev):
 
 
 def run(steps: int, dev: str = "cuda"):
-    """Phases 2-7 on `dev`; returns (kernel results, launches on the
-    sampling path, launches on the training path)."""
+    """Phases 2-10 on `dev`; returns (kernel results, launches on the
+    sampling path, on the training path, on the refiner's training path)."""
     import torch
     from lidiff_tpu_torch import config as cfg_mod
     from lidiff_tpu_torch.diffusion.dpm_solver import make_dpm_solver
@@ -464,17 +491,28 @@ def run(steps: int, dev: str = "cuda"):
                                 "cond at the default capacity": cond_default,
                                 "uncond": pyr_u.levels[-1].geom}, knn),
            "A1": check_a1(pyr, sparse_conv, dev)}
+    # C2 at the sampling shapes, beside C1 (the sampling path keeps C1)
+    g0 = pyr.levels[0].geom
+    for name, bank in (("cond", cond),
+                       ("cond at the default capacity", cond_default)):
+        check_c2_case(knn, f"sampling, L0 queries x {name} bank", g0.coords,
+                      g0.mask, bank.coords, bank.mask, 1)
     res.update(check_backward(pyr, sparse_conv, dev))
     log(f"kernel checks: {time.time() - t0:.1f} s")
     check_small_reference(cfg_mod, diffusion, dev)
     check_small_train(cfg_mod, diffusion, dev)
-    del pyr, pyr_c, pyr_u
+    check_c2_case(knn, "two items, invalid rows", *batched_match_inputs(dev),
+                  2)
+    check_chamfer(dev)
+    check_small_refine_train(cfg_mod, dev)
+    del pyr, pyr_c, pyr_u, g0
 
     # ---- 3. the main path: one completion ----
     kernels = {"A1": sparse_conv._conv3_kernel,
                "A2": sparse_conv.Conv3ColumnsFunction,
                "A3": sparse_conv._conv3_dw_kernel,
-               "B1": grid._kmap3_kernel, "C1": knn._nn_kernel}
+               "B1": grid._kmap3_kernel, "C1": knn._nn_kernel,
+               "C2": knn._pruned_kernel, "C2w": knn._bound_kernel}
     solver = make_dpm_solver("linear", 1000, steps, 3.5e-5, 0.007, device=dev)
     # a first completion warms the allocator and the library kernels'
     # first-use set-up; the second is the one timed and counted
@@ -518,24 +556,28 @@ def run(steps: int, dev: str = "cuda"):
     train_launches = run_training(cfg, kernels, x_init, part, dev)
     # ---- 7. the CLI, small ----
     run_cli(dev)
-    return res, launches, train_launches
+    # ---- 8, 9. the refiner at full width ----
+    c2_res, refine_launches = run_refine(cfg, kernels, dev)
+    res.update(c2_res)
+    # ---- 10. its CLI, small ----
+    run_refine_cli(dev)
+    return res, launches, train_launches, refine_launches
 
 
-def run_training(cfg, kernels, x_init, part, dev):
+def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
+                loss_key: str, want: dict, describe, instrument=None):
     """TRAIN_WARMUP + TRAIN_STEPS optimizer steps through
-    Trainer.train_step at full width; returns the kernels' launches over
-    the timed steps."""
+    Trainer.train_step, each timed step split by device events into forward
+    (the task's loss_fn), backward and optimizer. Checks a finite loss, a
+    finite gradient for every parameter, that every parameter and running
+    statistic moved and, on the card, the launches per step in `want`;
+    then profiles one more step. `describe(metrics)` words a step's
+    metrics; `instrument(mark)` may set further marks inside the forward
+    phase and returns (undo, split) with split(marks of one step, elapsed)
+    wording them. Returns the kernels' launches over the timed steps."""
     import torch
-    from lidiff_tpu_torch.models import diffusion
     from lidiff_tpu_torch.training.trainer import Trainer
     cuda = dev == "cuda"
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    task = diffusion.DiffusionTask(cfg, device=dev,
-                                   compute_dtype=torch.bfloat16, seed=0)
-    batch = {"pcd_full": x_init, "pcd_part": part}
-    gen = torch.Generator(device=dev).manual_seed(3)
     model = task.model
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     marks = []
@@ -572,54 +614,536 @@ def run_training(cfg, kernels, x_init, part, dev):
                      lambda *_: mark("backward")),
                  trainer.optimizer.register_step_post_hook(
                      lambda *_: mark("optimizer"))]
+        undo, split = instrument(mark) if instrument else (None, None)
         losses = []
-        for _ in range(TRAIN_STEPS):
-            mark("start")
-            m = trainer.train_step(batch, gen)
-            losses.append(m)
-        _sync(dev)
-        del task.loss_fn              # back to the class's method
-        for h in hooks:
-            h.remove()
+        try:
+            for _ in range(TRAIN_STEPS):
+                mark("start")
+                losses.append(trainer.train_step(batch, gen))
+            _sync(dev)
+        finally:
+            del task.loss_fn              # back to the class's method
+            for h in hooks:
+                h.remove()
+            if undo:
+                undo()
         launches = {n: k.launches for n, k in kernels.items()}
-        per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
-        for i in range(TRAIN_STEPS):
-            ev = [e for _, e in marks[4 * i:4 * i + 4]]
-            fwd, bwd, opt = (elapsed(ev[j], ev[j + 1]) for j in range(3))
-            log(f"training step {i + 1}: {fwd + bwd + opt:.1f} ms (forward "
-                f"{fwd:.1f}, backward {bwd:.1f}, optimizer {opt:.1f}); loss "
-                f"{float(losses[i]['loss']):.4f}, overflow "
-                f"{int(losses[i]['overflow_vox'])}")
+        per_step = {n: c / TRAIN_STEPS for n, c in launches.items() if c}
+        starts = [i for i, (n, _) in enumerate(marks) if n == "start"]
+        for i, s in enumerate(starts):
+            step = marks[s:starts[i + 1] if i + 1 < len(starts) else None]
+            at = dict(step)
+            fwd, bwd, opt = (elapsed(at[a], at[b]) for a, b in (
+                ("start", "forward"), ("forward", "backward"),
+                ("backward", "optimizer")))
+            log(f"{what} step {i + 1}: {fwd + bwd + opt:.1f} ms (forward "
+                f"{fwd:.1f}{split(step, elapsed) if split else ''}, backward "
+                f"{bwd:.1f}, optimizer {opt:.1f}); {describe(losses[i])}")
         total = elapsed(marks[0][1], marks[-1][1]) / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
-        log(f"training: {N_PART * TILE} points, batch 1, bf16 compute with "
-            f"float32 activations, lr 1e-4: {total:.1f} ms/step over "
-            f"{TRAIN_STEPS} steps; launches per step {per_step}; peak "
-            f"device memory {peak:.2f} GiB")
+        log(f"{what}: {total:.1f} ms/step over {TRAIN_STEPS} steps; launches "
+            f"per step {per_step}; peak device memory {peak:.2f} GiB")
 
         # ---- checks ----
-        if not all(math.isfinite(float(m["loss"])) for m in losses):
-            raise AssertionError("training loss is not finite")
-        if any(int(m["overflow_vox"]) for m in losses):
-            raise AssertionError("capacity overflow on the training input")
+        if not all(math.isfinite(float(m[loss_key])) for m in losses):
+            raise AssertionError(f"{what}: the loss is not finite")
         for n, p in model.named_parameters():
             if p.grad is None or not bool(torch.isfinite(p.grad).all()):
-                raise AssertionError(f"no finite gradient for {n}")
+                raise AssertionError(f"{what}: no finite gradient for {n}")
         same = [k for k, v in model.state_dict().items()
                 if torch.equal(v, before[k])]
         if same:
-            raise AssertionError(f"{len(same)} parameters or running "
+            raise AssertionError(f"{what}: {len(same)} parameters or running "
                                  f"statistics did not change: {same[:5]}")
         if cuda:
-            want = {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
-                    "A1": 2 * CONVS_PER_STEP - 2}
             for n, c in want.items():
-                if per_step[n] != c:
-                    raise AssertionError(f"kernel {n}: {per_step[n]} launches "
-                                         f"per training step, expected {c}")
+                if per_step.get(n, 0) != c:
+                    raise AssertionError(
+                        f"{what}: kernel {n}: {per_step.get(n, 0)} launches "
+                        f"per step, expected {c}")
             profile_step(lambda: trainer.train_step(batch, gen),
-                         "one training step")
+                         f"one {what} step")
     return launches
+
+
+def run_training(cfg, kernels, x_init, part, dev):
+    """Diffusion training at full width; returns the kernels' launches over
+    the timed steps."""
+    import torch
+    from lidiff_tpu_torch.models import diffusion
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    task = diffusion.DiffusionTask(cfg, device=dev,
+                                   compute_dtype=torch.bfloat16, seed=0)
+    overflow = []
+
+    def describe(m):
+        overflow.append(int(m["overflow_vox"]))
+        return f"loss {float(m['loss']):.4f}, overflow {overflow[-1]}"
+
+    log(f"training: {N_PART * TILE} points, batch 1, bf16 compute with "
+        "float32 activations, lr 1e-4")
+    launches = train_steps(
+        task, cfg, {"pcd_full": x_init, "pcd_part": part},
+        torch.Generator(device=dev).manual_seed(3), kernels, dev, "training",
+        "loss", {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
+                 "A1": 2 * CONVS_PER_STEP - 2}, describe)
+    if any(overflow):
+        raise AssertionError("capacity overflow on the training input")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the refiner: kernel C2, the chamfer loss, RefineTask
+# ---------------------------------------------------------------------------
+
+def jittered(points, seed: int):
+    """points + N(0, 0.2) noise clipped at 0.3, the refine dataset's input
+    (lidiff_tpu_torch/data/kitti.py)."""
+    import numpy as np
+    noise = np.random.default_rng(seed).normal(0, 0.2, points.shape)
+    return (points + np.clip(noise, -0.3, 0.3)).astype(np.float32)
+
+
+def batched_match_inputs(dev, n_q: int = 100_000, n_r: int = 40_000):
+    """Two items of n_q query and n_r reference points, a tenth of each
+    invalid, quantized and sorted as the grid chamfer does: about 200k x
+    80k, so that the batch compare and the pruning across items run."""
+    import numpy as np
+    import torch
+    from lidiff_tpu_torch.ops import chamfer
+    rng = np.random.default_rng(21)
+    x = np.concatenate([jittered(ring_scan(n_q, seed=s), s) for s in (22, 23)])
+    y = np.concatenate([ring_scan(n_r, seed=s) for s in (24, 25)])
+    xf = torch.from_numpy(x).reshape(-1, 3).to(dev)
+    yf = torch.from_numpy(y).reshape(-1, 3).to(dev)
+    mx = torch.from_numpy(rng.random(2 * n_q) < 0.9).to(dev)
+    my = torch.from_numpy(rng.random(2 * n_r) < 0.9).to(dev)
+    res = chamfer._adaptive_res([(xf, mx), (yf, my)])
+    q, qm, _ = chamfer.grid_sort(xf, mx, res, 2)
+    r, rm, _ = chamfer.grid_sort(yf, my, res, 2)
+    return q, qm, r, rm
+
+
+def check_c2_case(knn, label, q, qm, r, rm, n_batch, c1_iters: int = 10):
+    """Kernel C2 and its window-bound kernel on one (queries, refs) pair:
+    C2 against C1 on every valid query; against `nn_match_pruned_plain`
+    (same intervals) and `nn_match_plain` (all refs) on C2_SUBSET_TILES
+    whole query tiles; the bound kernel against `window_bound_plain` on
+    every tile. All exact. Then the times of the prolog, the kernel and C1,
+    what the intervals keep, and the bound for the pairs inside them."""
+    import torch
+    import torch.nn.functional as F
+    T = knn.QTILE
+    Vq, Vr = q.shape[0], r.shape[0]
+    dev = q.device
+    nt = -(-Vq // T)
+    start, cnt = knn.prune_intervals(q, qm, r, rm, n_batch)
+    idx = knn.nn_match_intervals(q, r, rm, start, cnt, n_batch)
+    c1 = knn.nn_match(q, r, rm, n_batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    if not torch.equal(idx[qm], c1[qm]):
+        raise AssertionError(f"C2 ({label}) differs from C1 on "
+                             f"{int((idx != c1)[qm].sum())} valid queries")
+    if Vr < knn.UWND_MIN or -(-Vr // knn.RBLK) < 3:
+        raise AssertionError(f"C2 ({label}): too few refs for the pruning "
+                             "this check is about")
+    window = knn.window_rows(Vr)
+    win = knn.window_starts(q, r, window)
+    u2 = knn.window_bound(q, qm, r, rm, win, window, n_batch)
+    u2_plain = knn.window_bound_plain(q, qm, r, rm, win, window,
+                                      n_batch != 1)
+    if not torch.equal(u2, u2_plain):
+        raise AssertionError(f"the window bound ({label}) differs from its "
+                             f"plain version on {int((u2 != u2_plain).sum())}"
+                             " tiles")
+    # whole tiles, drawn with a fixed seed (not the ragged last one)
+    full_tiles = Vq // T
+    tiles = torch.randperm(full_tiles, generator=torch.Generator()
+                           .manual_seed(17))[:C2_SUBSET_TILES].sort().values
+    tiles = tiles.to(dev)
+    rows = (tiles[:, None] * T + torch.arange(T, device=dev)).reshape(-1)
+    q_sub, qm_sub, got = q[rows], qm[rows], idx[rows]
+
+    def pruned_plain():
+        return knn.nn_match_pruned_plain(
+            q_sub, qm_sub, r, rm, n_batch, intervals=(start[tiles],
+                                                      cnt[tiles]))
+    plain = pruned_plain()
+    scan_all = knn.nn_match_plain(q_sub, r, rm,
+                                  block=max(64, PLAIN_PAIRS // Vr))
+    for name, ref in (("its plain version", plain),
+                      ("the plain scan of every ref", scan_all)):
+        if not torch.equal(got[qm_sub], ref[qm_sub]):
+            raise AssertionError(
+                f"C2 ({label}) differs from {name} on "
+                f"{int((got != ref)[qm_sub].sum())} of {int(qm_sub.sum())} "
+                "valid queries")
+
+    prolog_ms = _time_ms(lambda: knn.prune_intervals(q, qm, r, rm, n_batch), 5)
+    ms = _time_ms(lambda: knn.nn_match_intervals(q, r, rm, start, cnt,
+                                                 n_batch), 5)
+    c1_ms = _time_ms(lambda: knn.nn_match(q, r, rm, n_batch), c1_iters)
+    bound_kernel_ms = _time_ms(lambda: knn.window_bound(q, qm, r, rm, win,
+                                                        window, n_batch))
+    plain_ms = _time_ms(pruned_plain, 1)
+    bound_plain_ms = _time_ms(lambda: knn.window_bound_plain(
+        q, qm, r, rm, win, window, n_batch != 1), 1)
+
+    # valid (query, ref) pairs inside the intervals, and in all
+    q_valid = F.pad(qm, (0, nt * T - Vq)).reshape(nt, T).sum(1)
+    r_before = F.pad(rm.long().cumsum(0), (1, 0))
+    r_valid = r_before[(start + cnt).long()] - r_before[start.long()]
+    pairs = float((q_valid * r_valid).sum())
+    all_pairs = float(qm.sum()) * float(rm.sum())
+    kept = float(cnt.sum()) / (nt * Vr)
+    # per pair: 3 multiply-adds, a subtract, a compare, as C1's bound
+    bound, by = _bound_ms(pairs * 8, PEAK_F32,
+                          Vq * (16 + 4) + Vr * 17 + nt * 8)
+    w_valid = r_before[(win + window).long()] - r_before[win.long()]
+    w_bound, w_by = _bound_ms(float((q_valid * w_valid).sum()) * 8, PEAK_F32,
+                              Vq * 17 + Vr * 17 + nt * 8)
+    log(f"C2 nn_match_pruned, {label}: {Vq} queries x {Vr} refs, exact "
+        f"against C1 (all valid queries) and both plain versions "
+        f"({rows.shape[0]} queries); prolog {prolog_ms:.4f} ms ({window}-row "
+        f"window bound kernel {bound_kernel_ms:.4f} ms, its plain version "
+        f"{bound_plain_ms:.2f} ms, bound {w_bound:.4f} ms ({w_by})), kernel "
+        f"{ms:.4f} ms, C1 for the same call {c1_ms:.4f} ms; intervals keep "
+        f"{100 * kept:.2f}% of the (tile, block) pairs, longest "
+        f"{int(cnt.max())} of {Vr} rows; {pairs:.4g} valid pairs inside them "
+        f"of {all_pairs:.4g}: bound {bound:.4f} ms ({by}), plain version on "
+        f"the subset {plain_ms:.2f} ms")
+    return dict(
+        kept=kept,
+        C2=dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None, prolog_ms=prolog_ms, c1_ms=c1_ms,
+                kept_share=kept, pairs=pairs, unpruned_pairs=all_pairs),
+        C2w=dict(max_abs_err=0, ms=bound_kernel_ms, plain_ms=bound_plain_ms,
+                 bound_ms=w_bound, bound_by=w_by, library_ms=None))
+
+
+def check_chamfer(dev):
+    """The chamfer loss on the card: grid against exact on clouds small
+    enough for the exact path, the card against the CPU for both, finite
+    gradients to both clouds; and the two ways to write the gather whose
+    backward adds 1.08M rows into 360k, timed."""
+    import torch
+    from lidiff_tpu_torch.ops import chamfer
+    x = torch.from_numpy(ring_scan(40_000, seed=11))
+    y = torch.from_numpy(ring_scan(20_000, seed=12))
+    loss = {}
+    for method in ("exact", "grid"):
+        for d in (dev, "cpu"):
+            a = x.clone().to(d).requires_grad_(True)
+            b = y.clone().to(d).requires_grad_(True)
+            val = chamfer.chamfer_distance(a, b, method=method)
+            val.backward()
+            if not (bool(torch.isfinite(a.grad).all())
+                    and bool(torch.isfinite(b.grad).all())
+                    and float(a.grad.abs().sum()) > 0
+                    and float(b.grad.abs().sum()) > 0):
+                raise AssertionError(f"chamfer ({method}, {d}): no finite "
+                                     "gradient to both clouds")
+            loss[method, d] = float(val.detach())
+        if not abs(loss[method, dev] - loss[method, "cpu"]) \
+                <= CHAMFER_CPU_RTOL * loss[method, "cpu"]:
+            raise AssertionError(f"chamfer ({method}): card "
+                                 f"{loss[method, dev]} vs CPU "
+                                 f"{loss[method, 'cpu']}")
+    rel = abs(loss["grid", dev] - loss["exact", dev]) / loss["exact", dev]
+    log(f"chamfer, 40000 x 20000 points, float32: exact {loss['exact', dev]:.6f}"
+        f" (CPU {loss['exact', 'cpu']:.6f}), grid {loss['grid', dev]:.6f} "
+        f"(CPU {loss['grid', 'cpu']:.6f}); grid against exact {rel:.2e} "
+        "relative; gradients finite")
+    if not rel <= CHAMFER_GRID_RTOL:
+        raise AssertionError("the grid chamfer is off the exact one")
+    if dev != "cuda":
+        return
+    # forward + backward of a [rows, 3] gather at the refiner's sizes
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_up, n_gt = N_PART * TILE * REFINE_UP, 2 * N_PART * TILE
+    for rows, n_idx in ((n_gt, n_up), (n_up, n_gt)):
+        pts = torch.randn(rows, 3, generator=gen, device=dev,
+                          requires_grad=True)
+        idx = torch.randint(0, rows, (n_idx,), generator=gen, device=dev)
+        cot = torch.randn(n_idx, 3, generator=gen, device=dev)
+        t_sel = _time_ms(lambda: torch.autograd.grad(
+            pts.index_select(0, idx), pts, cot))
+        t_adv = _time_ms(lambda: torch.autograd.grad(pts[idx], pts, cot))
+        log(f"gather of {n_idx} rows from {rows}, forward + backward: "
+            f"index_select {t_sel:.4f} ms, points[idx] {t_adv:.4f} ms")
+
+
+def make_refine_cfg(num_points: int, cr: float, up_factor: int,
+                    caps: dict) -> dict:
+    return {"experiment": {"id": "chip-smoke-refine"},
+            "data": {"resolution": 0.05, "num_points": num_points},
+            "train": {"n_gpus": 1, "lr": 1e-4, "batch_size": 1,
+                      "up_factor": up_factor},
+            "model": {"out_dim": 96, "cr": cr},
+            "tpu": dict(caps)}
+
+
+@contextlib.contextmanager
+def discrete_choices(tape: list, replay: bool, differ: dict):
+    """Record (replay=False) or replay the discrete choices of a training
+    step: the sign pattern at every ReLU and LeakyReLU, and the picks of
+    every chamfer index pass. A replaying run takes the recorded choices in
+    place of its own and counts in `differ` how many of its own differed.
+
+    The refiner's loss is piecewise smooth in the weights, and at a random
+    init a few voxels far from the target carry much of the gradient: one
+    unit of such a voxel whose input lies within float32 rounding of zero,
+    or one point that picks another neighbour, moves dozens of gradients by
+    up to 6e-2 of their size. Two devices are compared on the same piece."""
+    import torch
+    import torch.nn.functional as F
+    from lidiff_tpu_torch.ops import chamfer
+    played = iter(tape)
+
+    def choose(own, kind):
+        if not replay:
+            tape.append(own)
+            return own
+        rec = next(played).to(own.device)
+        differ[kind] = differ.get(kind, 0) + int((own != rec).sum())
+        differ[kind + " in all"] = differ.get(kind + " in all", 0) \
+            + own.numel()
+        return rec
+
+    def relu(x, inplace=False):
+        return torch.where(choose(x > 0, "signs"), x, 0.0)
+
+    def leaky_relu(x, negative_slope=0.01, inplace=False):
+        return torch.where(choose(x > 0, "signs"), x, negative_slope * x)
+
+    def picks(fn):
+        return lambda *a, **kw: choose(fn(*a, **kw), "picks")
+
+    saved = (F.relu, F.leaky_relu, chamfer.nn_indices_grid,
+             chamfer.nn_indices)
+    F.relu, F.leaky_relu = relu, leaky_relu
+    chamfer.nn_indices_grid = picks(saved[2])
+    chamfer.nn_indices = picks(saved[3])
+    try:
+        yield
+    finally:
+        (F.relu, F.leaky_relu, chamfer.nn_indices_grid,
+         chamfer.nn_indices) = saved
+
+
+def check_small_refine_train(cfg_mod, dev):
+    """A small f32 refiner training step on the card (kernels) against the
+    same weights and batch on the CPU (plain versions), the CPU run taking
+    the card run's discrete choices (`discrete_choices`): the loss and
+    every parameter's gradient at the tolerances of the diffusion step, and
+    the share of choices that the CPU would have made differently."""
+    import numpy as np
+    import torch
+    from lidiff_tpu_torch.models import refine
+    # 2 x 4000 distinct points, every level holds them all; the target is
+    # the clean cloud and two more jittered copies (12,000 points an item:
+    # enough pairs for the grid chamfer, so the step runs kernel C2)
+    cfg = cfg_mod.finalize_config(make_refine_cfg(
+        4000, 0.25, 2, {"full_capacities": [8192] * 5}))
+    clean = np.concatenate([ring_scan(4000, seed=3), ring_scan(4000, seed=4)])
+    noisy = jittered(clean, 5)
+    gt = np.concatenate([clean, jittered(clean, 6), jittered(clean, 7)], 1)
+    out, tape, differ = {}, [], {}
+    for d in (dev, "cpu"):
+        task = refine.RefineTask(cfg, device=d, compute_dtype=torch.float32,
+                                 seed=2)
+        with discrete_choices(tape, bool(tape), differ):
+            loss, _ = task.loss_fn(
+                {"pcd_noise": torch.from_numpy(noisy).to(d),
+                 "pcd_full": torch.from_numpy(gt).to(d)})
+        loss.backward()
+        out[d] = (float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                         task.model.named_parameters()})
+    (l_card, g_card), (l_cpu, g_cpu) = out[dev], out["cpu"]
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for n, ref in g_cpu.items():
+        err = float((g_card[n] - ref).abs().max())
+        lim = TRAIN_GRAD_TOL * float(ref.abs().max()) + TRAIN_GRAD_ATOL * top
+        if err / lim > worst:
+            worst, worst_name = err / lim, n
+    log(f"small f32 refiner training step, card vs CPU on the card's "
+        f"discrete choices: loss {l_card:.6f} vs {l_cpu:.6f}; {len(g_cpu)} "
+        f"gradients, worst at {worst:.3f} of its tolerance ({worst_name}), "
+        f"max|grad| {top:.3g}; the CPU's own choices differ in {differ}")
+    if not abs(l_card - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu):
+        raise AssertionError("card and CPU disagree on the refiner's loss")
+    if not (worst <= 1.0 and top > 0):
+        raise AssertionError(f"card and CPU disagree on the refiner's "
+                             f"gradient of {worst_name}")
+    for kind in ("signs", "picks"):
+        if not differ[kind] <= CHOICES_DIFFER * differ[kind + " in all"]:
+            raise AssertionError(f"card and CPU disagree on {differ[kind]} "
+                                 f"{kind} of the refiner's step")
+
+
+def run_refine(cfg, kernels, dev):
+    """The refiner at full width: `MinkUNet` with 18 output channels, 180k
+    jittered points, 1.08M upsampled points against a 360k-point target.
+    First C2 at that shape, both directions, on the clouds of this very
+    step (the model's eval forward, quantized and sorted as
+    `nn_indices_grid` does); then TRAIN_WARMUP + TRAIN_STEPS optimizer
+    steps. Returns (C2's results, the kernels' launches over the timed
+    steps)."""
+    import torch
+    from lidiff_tpu_torch import config as cfg_mod
+    from lidiff_tpu_torch.models import refine
+    from lidiff_tpu_torch.models.blocks import SparseConv
+    from lidiff_tpu_torch.ops import chamfer, knn
+    cuda = dev == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    n = N_PART * TILE
+    # dense clouds without tiled duplicates, as the aggregated dataset
+    # gives after its 0.1 m voxel-unique step (copies would make every
+    # window bound zero and flatter the pruning); every level gets the full
+    # point count, as the diffusion phases do: no voxel is dropped
+    rcfg = cfg_mod.finalize_config(make_refine_cfg(
+        n, cfg["model"]["cr"], REFINE_UP, {"capacity_fractions": [1.0] * 5}))
+    task = refine.RefineTask(rcfg, device=dev, compute_dtype=torch.bfloat16,
+                             seed=0)
+    noisy = torch.from_numpy(jittered(ring_scan(n, seed=31), 32)).to(dev)
+    gt = torch.from_numpy(ring_scan(2 * n, seed=33)).to(dev)
+    pyr = task.pyramid(noisy)
+    ovf = [int(v) for v in pyr.overflows()]
+    log(f"refiner: capacities {rcfg['tpu']['full_capacities']}; voxels per "
+        f"level {[int(l.geom.num) for l in pyr.levels]}; overflow {ovf}")
+    if any(ovf):
+        raise AssertionError("capacity overflow on the refiner's input")
+    del pyr
+
+    # ---- 8. C2 at the chamfer's shape ----
+    up = task.upsample(noisy, task.forward(noisy)).reshape(-1, 3)
+    res = chamfer._adaptive_res([(up, None), (gt[0], None)])
+    xs, xm, _ = chamfer.grid_sort(up, None, res, 1)
+    ys, ym, _ = chamfer.grid_sort(gt[0], None, res, 1)
+    fwd = check_c2_case(knn, "chamfer, upsampled -> target", xs, xm, ys, ym,
+                        1, c1_iters=2)
+    back = check_c2_case(knn, "chamfer, target -> upsampled", ys, ym, xs, xm,
+                         1, c1_iters=2)
+    if cuda and (fwd["kept"] >= 1.0 or back["kept"] >= 1.0):
+        raise AssertionError("the intervals prune nothing at the chamfer's "
+                             "shape")
+    c2 = {"C2": {**fwd["C2"], "ms_reverse": back["C2"]["ms"],
+                 "prolog_ms_reverse": back["C2"]["prolog_ms"],
+                 "c1_ms_reverse": back["C2"]["c1_ms"],
+                 "kept_share_reverse": back["kept"]},
+          "C2w": {**fwd["C2w"], "ms_reverse": back["C2w"]["ms"]}}
+    del up, xs, xm, ys, ym, fwd, back
+
+    # ---- 9. training steps ----
+    def instrument(mark):
+        """Marks where the model's forward ends (the chamfer begins) and
+        around each index pass."""
+        loss_chamfer, grid_idx = refine.chamfer_distance, \
+            chamfer.nn_indices_grid
+
+        def timed_chamfer(*a, **kw):
+            mark("chamfer")
+            return loss_chamfer(*a, **kw)
+
+        def timed_idx(*a, **kw):
+            mark("idx_s")
+            out = grid_idx(*a, **kw)
+            mark("idx_e")
+            return out
+
+        refine.chamfer_distance = timed_chamfer
+        chamfer.nn_indices_grid = timed_idx
+
+        def undo():
+            refine.chamfer_distance = loss_chamfer
+            chamfer.nn_indices_grid = grid_idx
+
+        def split(step, elapsed):
+            at = dict(step)
+            idx = sum(elapsed(a[1], b[1]) for a, b in zip(
+                [m for m in step if m[0] == "idx_s"],
+                [m for m in step if m[0] == "idx_e"]))
+            model = elapsed(at["start"], at["chamfer"])
+            loss = elapsed(at["chamfer"], at["forward"])
+            return (f": model {model:.1f}, chamfer index passes {idx:.1f}, "
+                    f"rest of the chamfer {loss - idx:.1f}")
+        return undo, split
+
+    convs = sum(1 for m in task.model.modules()
+                if isinstance(m, SparseConv) and m.kernel.shape[0] == 27)
+    log(f"refiner training: {n} points -> {n * REFINE_UP} upsampled against "
+        f"a {2 * n}-point target, batch 1, bf16 compute with float32 "
+        f"activations, lr 1e-4; {convs} column convs")
+    # every column conv but the first (its input needs no gradient) has a
+    # feats gradient; one pyramid of 5 levels; one match per direction
+    launches = train_steps(
+        task, rcfg, {"pcd_noise": noisy, "pcd_full": gt}, None, kernels, dev,
+        "refiner training", "cd_loss",
+        {"A3": convs, "A2": convs - 1, "A1": 2 * convs - 1, "B1": 5, "C2": 2,
+         "C2w": 2, "C1": 0},
+        lambda m: f"cd_loss {float(m['cd_loss']):.4f}", instrument)
+    return c2, launches
+
+
+def run_refine_cli(dev: str) -> None:
+    """`lidiff_tpu_torch.train_refine` on a small synthetic KITTI tree: the
+    sanity validation, two steps, a resume that takes a third, `--test`."""
+    import io
+    from lidiff_tpu_torch import train_refine
+    cfg = {
+        "experiment": {"id": "chip-smoke-refine-cli"},
+        "data": {"resolution": 0.05, "dataloader": "KITTI", "split": "train",
+                 "train": ["00"], "validation": ["00"], "test": [],
+                 "scan_window": 2, "num_points": 600},
+        "train": {"n_gpus": 1, "num_workers": 1, "max_epoch": 2, "lr": 1e-4,
+                  "batch_size": 1, "up_factor": 2},
+        "model": {"out_dim": 96, "cr": 0.5},
+        "tpu": {"full_capacities": [768, 512, 384, 256, 256]},
+    }
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        make_kitti_tree(tmp)
+        cfg["data"]["data_dir"] = tmp
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        argv = ["-c", cfg_path] + (["--device", "cpu"] if dev == "cpu"
+                                   else [])
+        exp = os.path.join(tmp, "experiments", "chip-smoke-refine-cli")
+        ckpts = os.path.join(exp, "checkpoints")
+        said = io.StringIO()
+        os.chdir(tmp)                 # the CLI writes ./experiments/<id>
+        try:
+            with contextlib.redirect_stdout(said):
+                # 4 scans, window 2: two windows, two steps an epoch
+                train_refine.main(argv + ["--max_steps", "2"])
+                first = sorted(os.listdir(ckpts))
+                train_refine.main(argv + ["-ckpt", exp, "--max_steps", "3"])
+                second = sorted(os.listdir(ckpts))
+                train_refine.main(argv + ["-w", exp, "--test"])
+        finally:
+            os.chdir(cwd)
+    lines = said.getvalue().splitlines()
+    sanity = [l for l in lines if l.startswith("sanity: cd_loss")]
+    mean = [l for l in lines if l.startswith("mean test cd_loss")]
+    log(f"train_refine CLI: {sanity[:1]}, checkpoints after 2 steps {first}, "
+        f"after the resume {second}, {mean[:1]}")
+    if len(sanity) != 2 or not all(math.isfinite(float(l.split()[2]))
+                                   for l in sanity):
+        raise AssertionError("the train_refine CLI printed no finite sanity "
+                             "validation loss")
+    if "step_00000002.pt" not in first or "hparams.json" not in first \
+            or "step_00000003.pt" not in second:
+        raise AssertionError("the train_refine CLI did not checkpoint step 2 "
+                             "and resume to step 3")
+    if len(mean) != 1 or not math.isfinite(float(mean[0].split()[-1])):
+        raise AssertionError("train_refine --test printed no finite mean")
 
 
 def make_kitti_tree(root: str, seq: str = "00", n_scans: int = 4,
@@ -709,6 +1233,8 @@ def run_cli(dev: str) -> None:
 _CATEGORIES = (("A3 conv3_columns_dw", ("conv3_columns_dw",)),
                ("A1 conv3_columns", ("conv3_columns",)),
                ("B1 kmap3_columns", ("kmap3_columns",)),
+               ("C2 nn_match_pruned", ("nn_match_pruned",
+                                       "nn_window_bound")),
                ("C1 nn_match", ("nn_match",)),
                ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                   "nvjet")),
@@ -793,7 +1319,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    res, sample_launches, train_launches = run(args.steps)
+    res, sample_launches, train_launches, refine_launches = run(args.steps)
     # kernel: (source, TPU kernel it replaces, the path its count is from)
     sources = {
         "A1": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:840",
@@ -805,16 +1331,24 @@ def main(argv=None) -> int:
         "A2": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:667",
                train_launches),
         "A3": ("conv3_columns_dw", "lidiff_tpu/ops/pallas_conv.py:568",
-               train_launches)}
+               train_launches),
+        "C2": ("nn_match_pruned", "lidiff_tpu/ops/pallas_knn.py:403",
+               refine_launches),
+        # the prolog's distance bound: XLA code in the JAX package, a
+        # kernel of the same source here
+        "C2w": ("nn_match_pruned", "lidiff_tpu/ops/pallas_knn.py:198",
+                refine_launches)}
     for path, counts, names in (
             ("sampling", sample_launches, ("A1", "B1", "C1")),
-            ("training", train_launches, ("A1", "A2", "A3", "B1", "C1"))):
+            ("training", train_launches, ("A1", "A2", "A3", "B1", "C1")),
+            ("refiner training", refine_launches,
+             ("A1", "A2", "A3", "B1", "C2", "C2w"))):
         for n in names:
             if counts[n] == 0:
                 raise AssertionError(f"kernel {n} was not launched on the "
                                      f"{path} path")
     line = {"kernels": [
-        {"name": f"{n} {src}", "route": "cuda",
+        {"name": f"{n} {NAMES.get(n, src)}", "route": "cuda",
          "source": f"lidiff_tpu_torch/csrc/{src}.cu", "replaces": rep,
          "launches": counts[n], **res[n]}
         for n, (src, rep, counts) in sources.items()]}

@@ -1,11 +1,13 @@
-"""Weight bridge: load a JAX `{"params", "batch_stats"}` tree into the
-port's DiffusionModel, and map the port's tensors back onto that tree.
+"""Weight bridge: load a JAX `{"params", "batch_stats"}` tree into one of
+the port's models (`DiffusionModel`, the refiner's `MinkUNet`), and map the
+port's tensors back onto that tree.
 
 The tree is given as nested dicts of numpy arrays (e.g. `jax.device_get`
 of the JAX variables, or a checkpoint read with numpy), keyed by the flax
 module names. The port's submodules carry the same names, so a flax path
 `partial_enc/Stem_0/ConvBNReLU_0/SparseConv_0/kernel` is the torch key
-`partial_enc.Stem_0.ConvBNReLU_0.SparseConv_0.kernel`, with two rules:
+`partial_enc.Stem_0.ConvBNReLU_0.SparseConv_0.kernel` (the refiner's tree
+starts at `Stem_0/...` and ends with `head/Dense_1`), with two rules:
   * Dense kernels are [in, out] in flax and `weight` [out, in] in torch;
   * sparse conv kernels stay [taps, Cin, Cout].
 BatchNorm `scale`/`bias` are parameters, `mean`/`var` buffers. A missing or

@@ -1,5 +1,5 @@
 """Per-item preparation and batching to fixed shapes (counterpart of
-lidiff_tpu/data/collation.py, diffusion items only).
+lidiff_tpu/data/collation.py).
 
 Numpy re-design of the reference lidiff/utils/collations.py:
 
@@ -7,6 +7,8 @@ Numpy re-design of the reference lidiff/utils/collations.py:
     partial scan, build the 10 m viewpoint grid from it, FPS to n_part,
     viewpoint-filter the GT map crop, shuffle+tile GT to exactly n_full,
     per-item mean/std.
+  * `point_set_to_sparse_refine` (ref :66-82) — refine items: shuffle+tile
+    both clouds to fixed sizes.
   * `collate`                   (ref :85-99)  — stack to a batch dict.
 
 Everything returns fixed-size float32 arrays.
@@ -72,6 +74,22 @@ def point_set_to_sparse(p_full: np.ndarray, p_part: np.ndarray, n_full: int,
         "mean": mean.astype(np.float32),
         "std": std.astype(np.float32),
         "pcd_part": p_part_out.astype(np.float32),
+        "filename": filename,
+    }
+
+
+def point_set_to_sparse_refine(p_full: np.ndarray, p_part: np.ndarray,
+                               n_full: int, n_part: int, filename: str,
+                               rng: np.random.Generator | None = None
+                               ) -> dict:
+    rng = rng or np.random.default_rng()
+    p_full = _tile_to(p_full.astype(np.float32), n_full, rng)
+    p_part = _tile_to(p_part.astype(np.float32), n_part, rng)
+    return {
+        "pcd_full": p_full,
+        "mean": p_full.mean(0).astype(np.float32),
+        "std": p_full.std(0).astype(np.float32),
+        "pcd_noise": p_part,
         "filename": filename,
     }
 

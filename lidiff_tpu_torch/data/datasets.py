@@ -1,5 +1,4 @@
-"""Dataset/dataloader registry (counterpart of lidiff_tpu/data/datasets.py;
-the refine data module comes with the refiner).
+"""Dataset/dataloader registry (counterpart of lidiff_tpu/data/datasets.py).
 
 `dataloaders['KITTI'](cfg)` returns a module exposing
 train/val/test_dataloader() — same surface as the reference Lightning data
@@ -8,7 +7,8 @@ modules, backed by the threaded loader.
 
 from __future__ import annotations
 
-from lidiff_tpu_torch.data.kitti import TemporalKITTIDataset
+from lidiff_tpu_torch.data.kitti import (TemporalKITTIAggrDataset,
+                                         TemporalKITTIDataset)
 from lidiff_tpu_torch.data.loader import DataLoader
 
 
@@ -43,4 +43,37 @@ class TemporalKittiDataModule:
                           num_workers=self.cfg["train"]["num_workers"])
 
 
+class TemporalKittiRefineDataModule:
+    """Refine data (reference datasets_refine.py): aggregated windows."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def _make(self, seqs, split):
+        d = self.cfg["data"]
+        return TemporalKITTIAggrDataset(
+            data_dir=d["data_dir"], scan_window=d["scan_window"], seqs=seqs,
+            split=split, resolution=d["resolution"],
+            num_points=d["num_points"])
+
+    def _loader(self, ds, batch_size, shuffle=False):
+        return DataLoader(ds, batch_size, shuffle=shuffle,
+                          part_key="pcd_noise",
+                          num_workers=self.cfg["train"]["num_workers"])
+
+    def train_dataloader(self):
+        ds = self._make(self.cfg["data"]["train"], self.cfg["data"]["split"])
+        return self._loader(ds, self.cfg["train"]["batch_size"], shuffle=True)
+
+    def val_dataloader(self):
+        return self._loader(
+            self._make(self.cfg["data"]["validation"], "validation"), 1)
+
+    def test_dataloader(self):
+        return self._loader(
+            self._make(self.cfg["data"]["validation"], "validation"),
+            self.cfg["train"]["batch_size"])
+
+
 dataloaders = {"KITTI": TemporalKittiDataModule}
+dataloaders_refine = {"KITTI": TemporalKittiRefineDataModule}

@@ -1,9 +1,13 @@
-"""SemanticKITTI dataset for diffusion training (counterpart of
-lidiff_tpu/data/kitti.py; the refine dataset comes with the refiner).
+"""SemanticKITTI datasets for diffusion and refinement training
+(counterpart of lidiff_tpu/data/kitti.py).
 
-`TemporalKITTIDataset` is a numpy re-implementation of the reference
-dataloader lidiff/datasets/dataloader/SemanticKITTITemporal.py: per-scan
-diffusion items as fixed-shape float32 arrays via data/collation.py.
+Numpy re-implementations of the reference dataloaders:
+  * `TemporalKITTIDataset`     -- per-scan diffusion items
+    (lidiff/datasets/dataloader/SemanticKITTITemporal.py)
+  * `TemporalKITTIAggrDataset` -- sliding-window refine items
+    (lidiff/datasets/dataloader/SemanticKITTITemporalAggr.py)
+
+Both emit fixed-shape float32 arrays via data/collation.py.
 """
 
 from __future__ import annotations
@@ -111,3 +115,57 @@ class TemporalKITTIDataset:
             p_full, p_part, self.num_points, self.n_part, path,
             p_mean=self.data_stats["mean"], p_std=self.data_stats["std"],
             rng=rng)
+
+
+class TemporalKITTIAggrDataset:
+    """Refine items: aggregated static windows, jittered input
+    (SemanticKITTITemporalAggr.py:42-99)."""
+
+    def __init__(self, data_dir: str, scan_window: int, seqs: list[str],
+                 split: str, resolution: float, num_points: int,
+                 seed: int = 42):
+        self.data_dir = data_dir
+        self.split = split
+        self.resolution = resolution
+        self.num_points = int(num_points)
+        self.scan_window = int(scan_window)
+        self.seed = seed
+        self.points_datapath: list[list[str]] = []
+
+        for seq in seqs:
+            vdir = os.path.join(_seq_dir(data_dir, seq), "velodyne")
+            scans = sorted(os.listdir(vdir))
+            for i in range(len(scans)):
+                # tail-merge rule (ref :52): avoid a tiny trailing window
+                end = (i + self.scan_window
+                       if len(scans) - i > 1.5 * self.scan_window
+                       else len(scans))
+                self.points_datapath.append(
+                    [os.path.join(vdir, s) for s in scans[i:end]])
+                if end == len(scans):
+                    break
+
+    def __len__(self):
+        return len(self.points_datapath)
+
+    def __getitem__(self, index: int) -> dict:
+        paths = self.points_datapath[index]
+        t_frame = len(paths) // 2
+        p_full, p_part = preprocess.aggregate_pcds(paths, self.data_dir,
+                                                   t_frame)
+        cat = np.concatenate((p_full, p_part), 0).astype(np.float32)
+        rng = np.random.default_rng(
+            None if self.split == "train" else self.seed + index)
+        if self.split == "train":
+            cat = transforms.train_transforms(cat, rng)
+
+        p_noise = transforms.jitter(cat, rng, sigma=0.2, clip=0.3)
+        p_noise = p_noise[np.linalg.norm(p_noise, axis=-1) < 50.0]
+
+        keep = preprocess.voxel_unique_index(cat, 0.1)
+        p_full = cat[keep]
+        p_full = p_full[np.linalg.norm(p_full, axis=-1) < 50.0]
+
+        return collation.point_set_to_sparse_refine(
+            p_full, p_noise, self.num_points * 2, self.num_points,
+            paths[0], rng=rng)

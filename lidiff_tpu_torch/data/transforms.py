@@ -1,6 +1,6 @@
 """Point-cloud augmentations (numpy), reference parity with
 the reference lidiff/utils/pcd_transforms.py (train path only: full-yaw
-rotation, small-angle perturbation, scale 0.95-1.05, y-flip p=0.5);
+rotation, small-angle perturbation, scale 0.95-1.05, y-flip p=0.5, jitter);
 counterpart of lidiff_tpu/data/transforms.py.
 
 All functions take/return [N, 3] and use an explicit np.random.Generator so
@@ -47,9 +47,15 @@ def random_flip_y(points: np.ndarray, rng: np.random.Generator,
     return points
 
 
+def jitter(points: np.ndarray, rng: np.random.Generator,
+           sigma: float = 0.01, clip: float = 0.05) -> np.ndarray:
+    noise = np.clip(sigma * rng.standard_normal(points.shape), -clip, clip)
+    return points + noise.astype(points.dtype)
+
+
 def train_transforms(points: np.ndarray,
                      rng: np.random.Generator) -> np.ndarray:
-    """The diffusion train augmentation stack
+    """The diffusion/refine train augmentation stack
     (SemanticKITTITemporal.py:69-76)."""
     points = rotate_yaw(points, rng)
     points = rotate_perturbation(points, rng)

@@ -28,7 +28,7 @@ from lidiff_tpu_torch.models.blocks import init_weights
 from lidiff_tpu_torch.models.minkunet import MinkGlobalEnc, MinkUNetDiff
 from lidiff_tpu_torch.ops.grid import Pyramid, build_pyramid
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "bf16": torch.bfloat16}
 
 
@@ -55,8 +55,8 @@ class DiffusionModel(nn.Module):
                             [(part_feats, pyr_part.levels[-1].geom)], t)
 
 
-def _eval_no_grad(method):
-    """Run a DiffusionTask method with the model in eval mode and autograd
+def eval_no_grad(method):
+    """Run a task's method with the model in eval mode and autograd
     off, and restore the model's mode afterwards: sampling after training
     must not update the BatchNorm running statistics."""
     @functools.wraps(method)
@@ -83,7 +83,7 @@ class DiffusionTask:
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
-            compute_dtype = _DTYPES[cfg["tpu"].get("compute_dtype",
+            compute_dtype = DTYPES[cfg["tpu"].get("compute_dtype",
                                                    "float32")]
         self.compute_dtype = compute_dtype
         d = cfg["diff"]
@@ -180,7 +180,7 @@ class DiffusionTask:
 
     # ---------------- sampling ----------------
 
-    @_eval_no_grad
+    @eval_no_grad
     def encode_banks(self, part):
         """Conditioning banks of one completion, computed once:
         (feats_c, geom_c, feats_u, geom_u)."""
@@ -191,7 +191,7 @@ class DiffusionTask:
         return (feats_c, pyr_c.levels[-1].geom,
                 feats_u, pyr_u.levels[-1].geom)
 
-    @_eval_no_grad
+    @eval_no_grad
     def denoise_pair(self, points, feats_c, geom_c, feats_u, geom_u, t: int,
                      w_uncond: float | None = None):
         """Classifier-free guided noise prediction at the current cloud, as
@@ -205,7 +205,7 @@ class DiffusionTask:
         eps_c, eps_u = eps[..., 0, :], eps[..., 1, :]
         return eps_u + w * (eps_c - eps_u)
 
-    @_eval_no_grad
+    @eval_no_grad
     def sample(self, x_init, part, generator: torch.Generator | None, *,
                offset0=None, noise=None, w_uncond: float | None = None,
                solver: DPMSolver | None = None):

@@ -1,6 +1,6 @@
-"""Sparse-voxel networks of the sampling and training paths (counterpart
-of lidiff_tpu/models/minkunet.py:35-225): the partial-scan encoder
-`MinkGlobalEnc` and the conditional denoiser `MinkUNetDiff`. In train mode
+"""Sparse-voxel networks (counterpart of lidiff_tpu/models/minkunet.py):
+the partial-scan encoder `MinkGlobalEnc`, the conditional denoiser
+`MinkUNetDiff` and the refiner's unconditional `MinkUNet`. In train mode
 (`module.training`) the activations stay float32 and only the convs and
 GEMMs cast to the compute dtype; nothing is rematerialized in the backward
 pass (`tpu.remat` of the config is read by nobody here).
@@ -185,3 +185,44 @@ class MinkUNetDiff(nn.Module):
         if G > 1:
             pt = pt.reshape(pt.shape[0], pt.shape[1], G, -1)
         return self.head(pt)
+
+
+class MinkUNet(nn.Module):
+    """Unconditional UNet of the refiner: per-point head Linear ->
+    LeakyReLU -> Linear -> Tanh with out_channels = 3 * up_factor; returns
+    [B, N, out_channels] float32."""
+
+    def __init__(self, out_channels: int = 18, cr: float = 1.0,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        cs = _channels(cr)
+        cd = compute_dtype
+        self.compute_dtype = cd
+        self.Stem_0 = Stem(3, cs[0], cd)
+        self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd)
+        self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd)
+        self.DownStage_2 = DownStage(cs[2], cs[2], cs[3], cd)
+        self.DownStage_3 = DownStage(cs[3], cs[3], cs[4], cd)
+        self.UpStage_0 = UpStage(cs[4], cs[3], cs[5], cd)
+        self.UpStage_1 = UpStage(cs[5], cs[2], cs[6], cd)
+        self.UpStage_2 = UpStage(cs[6], cs[1], cs[7], cd)
+        self.UpStage_3 = UpStage(cs[7], cs[0], cs[8], cd)
+        self.head = MLP(cs[8], 20, out_channels, cd)
+
+    def forward(self, pyr: Pyramid):
+        lv = pyr.levels
+        # the eval stream runs in the compute dtype, training keeps float32
+        # activations (lidiff_tpu/models/minkunet.py:245-246)
+        vox_feats = pyr.vox_feats
+        if not self.training:
+            vox_feats = vox_feats.to(self.compute_dtype)
+        x0 = self.Stem_0(vox_feats, lv[0])
+        x1 = self.DownStage_0(x0, lv[0], lv[1], 1)
+        x2 = self.DownStage_1(x1, lv[1], lv[2], 1)
+        x3 = self.DownStage_2(x2, lv[2], lv[3], 1)
+        x4 = self.DownStage_3(x3, lv[3], lv[4], 1)
+        y1 = self.UpStage_0(x4, x3, lv[3], 1)
+        y2 = self.UpStage_1(y1, x2, lv[2], 1)
+        y3 = self.UpStage_2(y2, x1, lv[1], 1)
+        y4 = self.UpStage_3(y3, x0, lv[0], 1)
+        return torch.tanh(self.head(slice_to_points(y4, pyr.point2voxel)))

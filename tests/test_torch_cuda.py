@@ -283,3 +283,140 @@ def test_sparse_conv_transpose_bf16(dev, dtype, cin, cout, G):
     a = _abs_products(c[pidx], w, fine.up_tap, G).reshape(-1, G * cout).cpu()
     err = (got - ref).abs().double()
     assert bool((err <= BF16_ULP * a + 1e-6 * float(a.max())).all())
+
+
+# ---------------- the refiner: kernel C2, chamfer, RefineTask ----------------
+
+def _sorted_coords(rng, v, nb, lim):
+    c = np.concatenate([rng.integers(0, nb, (v, 1)),
+                        rng.integers(-lim, lim, (v, 3))], 1).astype(np.int32)
+    return c[np.lexsort((c[:, 3], c[:, 2], c[:, 1], c[:, 0]))]
+
+
+# vq, vr, items, |coord| limit, valid share of refs, what the case is about
+C2_CASES = {
+    "random": (5000, 9000, 1, 1000, 0.9),
+    "ties": (3000, 6000, 1, 6, 1.0),
+    "two_items": (6000, 9000, 2, 900, 0.9),
+    "coords_at_the_key_limit": (3000, 9000, 1, 2047, 1.0),
+    "wide_window": (3000, 140_000, 1, 1279, 0.95),
+    "trivial_interval": (700, 300, 2, 50, 0.8),
+    "ragged_last_tile": (257, 2000, 1, 300, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(C2_CASES))
+def test_nn_match_pruned(dev, case):
+    """C2 and the window-bound kernel against their plain versions and
+    C1: exact on every valid query."""
+    vq, vr, nb, lim, r_valid = C2_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q = torch.from_numpy(_sorted_coords(rng, vq, nb, lim)).to(dev)
+    r = torch.from_numpy(_sorted_coords(rng, vr, nb, lim)).to(dev)
+    qm = torch.from_numpy(rng.random(vq) < 0.9).to(dev)
+    rm = torch.from_numpy(rng.random(vr) < r_valid).to(dev)
+    n_batch = 1 if nb == 1 else 0
+    launches = (knn._pruned_kernel.launches, knn._bound_kernel.launches)
+    got = knn.nn_match_pruned(q, qm, r, rm, n_batch)
+    pruning = case != "trivial_interval"
+    assert knn._pruned_kernel.launches == launches[0] + 1
+    assert knn._bound_kernel.launches == launches[1] + int(pruning)
+    start, cnt = knn.prune_intervals(q, qm, r, rm, n_batch)
+    plain = knn.nn_match_pruned_plain(q.cpu(), qm.cpu(), r.cpu(), rm.cpu(),
+                                      n_batch)
+    assert torch.equal(got.cpu()[qm.cpu()], plain[qm.cpu()])
+    assert torch.equal(got[qm], knn.nn_match(q, r, rm, n_batch)[qm])
+    if pruning:
+        window = knn.window_rows(vr)
+        win = knn.window_starts(q, r, window)
+        assert torch.equal(
+            knn.window_bound(q, qm, r, rm, win, window, n_batch),
+            knn.window_bound_plain(q, qm, r, rm, win, window, n_batch != 1))
+        assert int(cnt.min()) < vr
+    else:
+        assert bool((cnt == vr).all()) and bool((start == 0).all())
+
+
+def test_nn_match_pruned_no_valid_ref_in_an_item(dev):
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(_sorted_coords(rng, 4000, 2, 500)).to(dev)
+    r = torch.from_numpy(_sorted_coords(rng, 6000, 2, 500)).to(dev)
+    qm = torch.ones(4000, dtype=torch.bool, device=dev)
+    rm = r[:, 0] == 0                         # item 1 has no valid ref
+    got = knn.nn_match_pruned(q, qm, r, rm, 0)
+    assert torch.equal(got, knn.nn_match(q, r, rm, 0))
+    assert bool((got[q[:, 0] == 1] == 0).all())
+
+
+def test_nn_match_pruned_rejects_bad_input(dev):
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(_sorted_coords(rng, 600, 1, 100)).to(dev)
+    r = torch.from_numpy(_sorted_coords(rng, 3000, 1, 100)).to(dev)
+    qm = torch.ones(600, dtype=torch.bool, device=dev)
+    rm = torch.ones(3000, dtype=torch.bool, device=dev)
+    start, cnt = knn.prune_intervals(q, qm, r, rm, 1)
+    with pytest.raises(ValueError):          # tensors on two devices
+        knn.nn_match_intervals(q, r, rm.cpu(), start, cnt, 1)
+    with pytest.raises(ValueError):          # one interval too few
+        knn.nn_match_intervals(q, r, rm, start[:-1], cnt[:-1], 1)
+    with pytest.raises(ValueError):          # non-contiguous coords
+        knn.nn_match_intervals(q.T.contiguous().T, r, rm, start, cnt, 1)
+
+
+def _clouds(n, m, B, seed):
+    rng = np.random.default_rng(seed)
+    az = rng.uniform(0, 2 * np.pi, (B, n))
+    rad = rng.uniform(3, 45, (B, n))
+    x = np.stack([rad * np.cos(az), rad * np.sin(az),
+                  rng.uniform(-2, 2, (B, n))], -1).astype(np.float32)
+    y = (x[:, rng.permutation(n)[:m]]
+         + rng.normal(scale=0.3, size=(B, m, 3))).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("method", ["grid", "exact"])
+def test_chamfer_card_against_cpu(dev, method, masked):
+    """Loss within 1e-5 relative, gradients to both clouds within 1e-5 of
+    max|grad| (float32 sums in other orders). The grid path's indices are
+    exact integers on both sides; the exact path ranks float32 GEMM
+    outputs, where a near-tie may fall the other way on the card and turn
+    that point's gradient to another neighbour: up to 2 rows in 1000 may
+    differ there."""
+    from lidiff_tpu_torch.ops import chamfer
+    x, y = _clouds(6000, 4000, 2, 5)
+    rng = np.random.default_rng(6)
+    mx = rng.random(x.shape[:2]) < 0.8 if masked else None
+    my = rng.random(y.shape[:2]) < 0.8 if masked else None
+    launches = knn._pruned_kernel.launches
+    out = {}
+    for d in (dev, "cpu"):
+        a = torch.from_numpy(x).to(d).requires_grad_(True)
+        b = torch.from_numpy(y).to(d).requires_grad_(True)
+        masks = [None if m is None else torch.from_numpy(m).to(d)
+                 for m in (mx, my)]
+        loss = chamfer.chamfer_distance(a, b, *masks, method=method)
+        loss.backward()
+        out[d] = (float(loss.detach()), a.grad.cpu(), b.grad.cpu())
+    assert knn._pruned_kernel.launches == launches + (2 if method == "grid"
+                                                      else 0)
+    (l_card, ga, gb), (l_cpu, ra, rb) = out[dev], out["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-5 * l_cpu
+    for got, ref in ((ga, ra), (gb, rb)):
+        assert float(ref.abs().max()) > 0
+        off = (got - ref).abs().amax(dim=-1) > 1e-5 * float(ref.abs().max())
+        assert float(off.float().mean()) <= (2e-3 if method == "exact"
+                                             else 0.0)
+
+
+def test_refiner_small_training_step(dev):
+    """chip_smoke.py's small float32 `RefineTask.loss_fn` step, card against
+    CPU on the card's discrete choices (ReLU signs, chamfer picks): loss
+    rtol 1e-4, each gradient within 2e-3 of its max|grad| plus 1e-4 of the
+    largest (sums of about 60 layers in other orders), at most 1e-4 of the
+    choices differing. The step takes the grid chamfer, so it runs C2."""
+    import chip_smoke
+    from lidiff_tpu_torch import config as cfg_mod
+    launches = knn._pruned_kernel.launches
+    chip_smoke.check_small_refine_train(cfg_mod, "cuda")
+    assert knn._pruned_kernel.launches == launches + 2

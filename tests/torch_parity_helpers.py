@@ -34,12 +34,15 @@ def ring_scan(rng, n: int, batch: int = B, r_max: float = 12.0):
                      r * np.sin(el)], -1).astype(np.float32)
 
 
-def random_variables(jax_task, seed: int = 0):
+def random_variables(jax_task, seed: int = 0, **init_sizes):
     """A JAX variables tree of the task's model, filled with seeded numpy
     values (BatchNorm statistics included, so the BN folds are exercised).
-    The structure comes from `eval_shape` of the JAX init: no compile."""
+    The structure comes from `eval_shape` of the JAX init: no compile.
+    `init_sizes` are the size arguments of the task's `init` (default: the
+    diffusion task's)."""
+    init_sizes = init_sizes or {"n_full": 256, "n_part": 64}
     shapes = jax.eval_shape(lambda k: jax_task.init(k, batch_size=1,
-                                                    n_full=256, n_part=64),
+                                                    **init_sizes),
                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
 
