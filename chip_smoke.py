@@ -35,8 +35,23 @@ the kernels are built for sm_90a):
      `Trainer.train_step` at full width (180k jittered points, up_factor 6,
      a 360k-point target), split into model forward, chamfer index passes,
      the rest of the loss, backward and optimizer;
- 10. runs the `lidiff_tpu_torch.train_refine` CLI on the small tree: sanity
-     validation, two steps, a resume to step 3, then `--test`.
+ 10. holds kernel A4 (the int8 eval conv) against its plain version at every
+     sampling width with Cin >= 32, beside A1, with its prologue timed
+     apart, and on integer feats against A1; runs the same completion with
+     `conv_quant` on (the same weights, offset and noise; launch counts, the
+     chamfer distance to the bf16 output) and a small f32 int8 denoise on
+     the card against the CPU;
+ 11. runs the completion pipeline at full width through
+     `DiffCompletion.complete_scan` on random-init checkpoints saved as a
+     user's are, bf16 and int8 (on the bf16 run's crop and FPS), 4 solver
+     steps and the refiner (180k -> 1.08M points), with the time of each
+     stage, then the metrics of
+     `eval_path` against a synthetic ground truth;
+ 12. runs the CLIs on one small synthetic KITTI tree: `train` (two steps,
+     a resume to step 3, `--test`), `train_refine` (sanity validation, two
+     steps, a resume to step 3, `--test`), `map_from_scans`, the pipeline
+     on both trained checkpoints with LIDIFF_CONV_QUANT=int8, and
+     `eval_path` on its .ply files and live.
 It prints one line per phase, then a {"kernels": [...]} JSON line, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
@@ -47,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -89,6 +105,10 @@ TRAIN_WARMUP = 2            # untimed optimizer steps first: the first
                             # its forward phase with one warm-up step
 TRAIN_STEPS = 3             # timed optimizer steps
 CONVS_PER_STEP = 52         # column convs: 34 in the denoiser, 18 encoder
+PIPE_SCAN = 120_000         # points of the pipeline's synthetic scan, about
+                            # a KITTI scan before the range crop and FPS
+SMALL_DENOISE_TOL = 1e-3    # small f32 guided denoise (float32 or int8
+                            # convs), card against CPU, x max(max|eps|, 1)
 REFINE_UP = 6               # offsets per point: 180k points -> 1.08M
 C2_SUBSET_TILES = 256       # whole query tiles (65,536 queries) held
                             # against the plain versions
@@ -271,6 +291,111 @@ def check_a1(pyr, sc, dev):
     return timed
 
 
+def check_prologue(f, w, G, q, w_q):
+    """The prologue on the card against the Pallas kernel's formula
+    (lidiff_tpu/ops/pallas_conv.py:911-927), exactly: one scale per channel
+    over all rows and both groups, times the float32 reciprocal of 127,
+    round half to even, the scale folded into the weights."""
+    import torch
+    V, C = f.shape[0], w.shape[1]
+    f3 = f.float().reshape(V, G, C)
+    scale = torch.maximum(f3.abs().amax(dim=(0, 1)),
+                          torch.tensor(1e-12, device=f.device)) \
+        * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=f.device)
+    want_q = torch.round(f3 / scale[None, None, :]).clamp(-127, 127)
+    want_w = (w.float() * scale[None, :, None]).to(w.dtype)
+    if not (q.dtype == torch.int8
+            and torch.equal(q.float().reshape(V, G, C), want_q)
+            and torch.equal(w_q, want_w)):
+        raise AssertionError("the A4 prologue differs from the Pallas "
+                             "kernel's formula")
+
+
+def check_a4(pyr, sc, dev):
+    """A4 against its plain version on the same int8 feats and folded
+    weights at every width of the path with Cin >= 32, G in {1, 2}, float32
+    and bf16, with bias, ReLU and the mask; integer feats with amax 127
+    against A1 (scale 1: the same function, bit for bit). Times A4, A1 and
+    the prologue at G=2 bf16, the sampling path's case."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(4)
+    timed = None
+    for cin, cout, li in A1_WIDTHS:
+        if cin < sc.QUANT_MIN_CIN:
+            continue
+        lvl = pyr.levels[li]
+        g, km = lvl.geom, lvl.kmap3
+        V = g.capacity
+        for G in (1, 2):
+            for dt in (torch.float32, torch.bfloat16):
+                f = torch.randn(V, G * cin, generator=gen, device=dev)
+                f = (f * g.mask[:, None]).to(dt)
+                w = (torch.randn(27, cin, cout, generator=gen, device=dev)
+                     / math.sqrt(27 * cin)).to(dt)
+                b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+                q, w_q = sc.quantize_feats(f, w, G)
+                check_prologue(f, w, G, q, w_q)
+                qargs = (q, km.col_idx, km.hit, w_q, g.mask, G, b, True, dt)
+                got = sc._conv3_q_run(*qargs, km.nvalid).float()
+                ref = sc.conv3_columns_q_plain(*qargs).float()
+                err = (got - ref).abs()
+                scale = float(ref.abs().max())
+                if dt == torch.float32:
+                    ok = float(err.max()) <= A1_F32_TOL * scale
+                else:
+                    ok = bool((err <= A1_BF16_RTOL * ref.abs()
+                               + A1_BF16_ATOL * scale).all())
+                if not ok:
+                    raise AssertionError(
+                        f"A4 ({cin},{cout}) G={G} {dt}: max err "
+                        f"{float(err.max()):.3g} at scale {scale:.3g}")
+                if G == 1 or dt == torch.float32:
+                    continue
+                ms = _time_ms(lambda: sc._conv3_q_run(*qargs, km.nvalid))
+                a1_ms = _time_ms(lambda: sc.conv3_columns(
+                    f, km.col_idx, km.hit, w, g.mask, G, bias=b, relu=True,
+                    nvalid=km.nvalid))
+                pro_ms = _time_ms(lambda: sc.quantize_feats(f, w, G))
+                hits = int(km.hit[g.mask].sum())
+                flops = 2.0 * hits * cin * cout * G
+                # int8 feats, the map, bf16 folded weights, bias, bf16 out
+                nbytes = (V * G * cin + V * 9 * 4 + V * 27 + V
+                          + 27 * cin * cout * 2 + cout * 4 + V * G * cout * 2)
+                bound, by = _bound_ms(flops, PEAK_BF16, nbytes)
+                log(f"A4 conv3_columns_q ({cin:3d},{cout:3d}) L{li} G=2 bf16:"
+                    f" max err {float(err.max()):.3g} "
+                    f"({float(err.max()) / max(scale, 1e-30):.2e} of "
+                    f"max|ref|; float32 and G=1 checked too); {ms:.4f} ms "
+                    f"({flops / ms / 1e9:.1f} TFLOP/s), A1 {a1_ms:.4f} ms, "
+                    f"prologue {pro_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+                if (cin, cout, li, G) == A1_TIMED:
+                    plain_ms = _time_ms(lambda: sc.conv3_columns_q_plain(
+                        *qargs), 3)
+                    timed = dict(max_abs_err=float(err.max()), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=None,
+                                 prologue_ms=pro_ms, a1_ms=a1_ms)
+    # integer feats: q = feats, folded weights = weights
+    lvl = pyr.levels[0]
+    g, km = lvl.geom, lvl.kmap3
+    for dt in (torch.float32, torch.bfloat16):
+        f = torch.randint(-127, 128, (g.capacity, 64), generator=gen,
+                          device=dev).float() * g.mask[:, None]
+        f[0] = 127.0                  # every channel's amax is 127
+        f = f.to(dt)
+        w = (0.1 * torch.randn(27, 32, 32, generator=gen, device=dev)).to(dt)
+        args = (f, km.col_idx, km.hit, w, g.mask, 2)
+        got = sc.conv3_columns_q(*args, bias=None, relu=True,
+                                 nvalid=km.nvalid)
+        ref = sc.conv3_columns(*args, relu=True, nvalid=km.nvalid)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"A4 on integer feats ({dt}) differs from "
+                                 f"A1 by {float((got - ref).abs().max())}")
+    log(f"A4 {A1_TIMED}: plain version {timed['plain_ms']:.4f} ms; integer "
+        "feats equal A1 bit for bit (float32 and bf16)")
+    return timed
+
+
 def _conv_inputs(lvl, cin, cout, G, dt, gen, dev):
     """Masked feats, a cotangent with non-zero masked rows, weights."""
     import torch
@@ -417,9 +542,11 @@ def check_small_train(cfg_mod, diffusion, dev):
                              f"{worst_name}")
 
 
-def check_small_reference(cfg_mod, diffusion, dev):
+def check_small_reference(cfg_mod, diffusion, dev, conv_quant=False):
     """A small f32 guided denoise on the card (kernels) against the same
-    weights and input on the CPU (plain versions)."""
+    weights and input on the CPU (plain versions); with `conv_quant` the
+    int8 convs (A4), and the count of outputs off by more than 1e-4 of
+    max|eps|, where an int8 step rounded the other way would show."""
     import numpy as np
     import torch
     caps = {"full_capacities": [4096] * 3 + [3072, 2048],
@@ -431,21 +558,80 @@ def check_small_reference(cfg_mod, diffusion, dev):
     eps = {}
     for d in (dev, "cpu"):
         task = diffusion.DiffusionTask(cfg, device=d,
-                                       compute_dtype=torch.float32, seed=2)
+                                       compute_dtype=torch.float32, seed=2,
+                                       conv_quant=conv_quant)
         banks = task.encode_banks(torch.from_numpy(part).to(d))
         eps[d] = task.denoise_pair(torch.from_numpy(x).to(d), *banks,
                                    500).cpu()
-    err = float((eps[dev] - eps["cpu"]).abs().max())
-    scale = float(eps["cpu"].abs().max())
-    log(f"small f32 guided denoise, card vs CPU: max err {err:.3g} "
-        f"(max|eps| {scale:.3g})")
-    if not err <= 1e-3 * max(scale, 1.0):
-        raise AssertionError("card and CPU disagree on the small denoise")
+    diff = (eps[dev] - eps["cpu"]).abs()
+    err, scale = float(diff.max()), float(eps["cpu"].abs().max())
+    what = "int8" if conv_quant else "f32"
+    log(f"small {what} guided denoise, card vs CPU: max err {err:.3g} "
+        f"(max|eps| {scale:.3g}); {int((diff > 1e-4 * scale).sum())} of "
+        f"{diff.numel()} outputs off by more than 1e-4 of max|eps|")
+    if not err <= SMALL_DENOISE_TOL * max(scale, 1.0):
+        raise AssertionError(f"card and CPU disagree on the small {what} "
+                             "denoise")
+
+
+def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
+                        steps, dev):
+    """The completion of phase 3 with `conv_quant` on: the same weights,
+    offset and noise (the same generator seed). Checks zero overflow, a
+    finite output and the launches (A1 only for the stem's Cin=3 conv: once
+    per step and once per bank); reports ms per step and the chamfer
+    distance to the bf16 output. Returns the launches."""
+    import torch
+    from lidiff_tpu_torch.ops import chamfer
+    task.sample(x_init, part, torch.Generator(device=dev).manual_seed(2),
+                solver=solver)
+    _sync(dev)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.time()
+    out = task.sample(x_init, part,
+                      torch.Generator(device=dev).manual_seed(1),
+                      solver=solver)
+    _sync(dev)
+    total_s = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    t0 = time.time()
+    task.encode_banks(part)
+    _sync(dev)
+    enc_s = time.time() - t0
+    step_ms = (total_s - enc_s) / steps * 1e3
+    ovf = [int(v) for v in task.pyramid_full(out).overflows()]
+    cd = float(chamfer.chamfer_distance(out, out_bf16))
+    log(f"int8 completion (conv_quant): {total_s:.3f} s, encoder "
+        f"{enc_s * 1e3:.1f} ms, {step_ms:.1f} ms/step (bf16 "
+        f"{bf16['step_ms']:.1f} ms/step, encoder {bf16['enc_ms']:.1f} ms); "
+        f"launches {launches}; chamfer distance to the bf16 output {cd:.5f} "
+        f"(random weights); overflow at the output {ovf}")
+    if tuple(out.shape) != tuple(out_bf16.shape) or \
+            not bool(torch.isfinite(out).all()) or any(ovf):
+        raise AssertionError("int8 completion output is not finite, has the "
+                             "wrong shape or overflows")
+    if dev == "cuda":
+        want = {"A1": steps + 2,
+                "A4": bf16["launches"]["A1"] - steps - 2,
+                "B1": bf16["launches"]["B1"], "C1": bf16["launches"]["C1"]}
+        for n, c in want.items():
+            if launches[n] != c:
+                raise AssertionError(f"int8 completion: kernel {n}: "
+                                     f"{launches[n]} launches, expected {c}")
+        banks = task.encode_banks(part)
+        t_first = int(solver.timesteps[0])
+        profile_step(lambda: task.denoise_pair(x_init + torch.randn(
+            x_init.shape, generator=torch.Generator(device=dev).manual_seed(9),
+            device=dev), *banks, t_first),
+            f"one int8 guided sampling step (t={t_first})")
+    return launches
 
 
 def run(steps: int, dev: str = "cuda"):
-    """Phases 2-10 on `dev`; returns (kernel results, launches on the
-    sampling path, on the training path, on the refiner's training path)."""
+    """Phases 2-12 on `dev`; returns (kernel results, {path: launches} for
+    the sampling, int8 sampling, training, refiner training and pipeline
+    paths)."""
     import torch
     from lidiff_tpu_torch import config as cfg_mod
     from lidiff_tpu_torch.diffusion.dpm_solver import make_dpm_solver
@@ -490,7 +676,8 @@ def run(steps: int, dev: str = "cuda"):
            "C1": check_c1(pyr, {"cond": cond,
                                 "cond at the default capacity": cond_default,
                                 "uncond": pyr_u.levels[-1].geom}, knn),
-           "A1": check_a1(pyr, sparse_conv, dev)}
+           "A1": check_a1(pyr, sparse_conv, dev),
+           "A4": check_a4(pyr, sparse_conv, dev)}
     # C2 at the sampling shapes, beside C1 (the sampling path keeps C1)
     g0 = pyr.levels[0].geom
     for name, bank in (("cond", cond),
@@ -500,6 +687,7 @@ def run(steps: int, dev: str = "cuda"):
     res.update(check_backward(pyr, sparse_conv, dev))
     log(f"kernel checks: {time.time() - t0:.1f} s")
     check_small_reference(cfg_mod, diffusion, dev)
+    check_small_reference(cfg_mod, diffusion, dev, conv_quant=True)
     check_small_train(cfg_mod, diffusion, dev)
     check_c2_case(knn, "two items, invalid rows", *batched_match_inputs(dev),
                   2)
@@ -509,6 +697,7 @@ def run(steps: int, dev: str = "cuda"):
 
     # ---- 3. the main path: one completion ----
     kernels = {"A1": sparse_conv._conv3_kernel,
+               "A4": sparse_conv._conv3_q_kernel,
                "A2": sparse_conv.Conv3ColumnsFunction,
                "A3": sparse_conv._conv3_dw_kernel,
                "B1": grid._kmap3_kernel, "C1": knn._nn_kernel,
@@ -550,18 +739,34 @@ def run(steps: int, dev: str = "cuda"):
             not bool(torch.isfinite(out).all()):
         raise AssertionError("completion output is not finite or has the "
                              "wrong shape")
-    del task, out
+    del task
+    # ---- 10. the same completion with the int8 convs ----
+    task_q = diffusion.DiffusionTask(cfg, device=dev,
+                                     compute_dtype=torch.bfloat16, seed=0,
+                                     conv_quant=True)
+    int8_launches = run_int8_completion(
+        task_q, x_init, part, solver, out, {
+            "step_ms": step_ms, "enc_ms": enc_s * 1e3, "launches": launches},
+        kernels, steps, dev)
+    del task_q, out
 
     # ---- 6. the training path at full width ----
     train_launches = run_training(cfg, kernels, x_init, part, dev)
-    # ---- 7. the CLI, small ----
-    run_cli(dev)
     # ---- 8, 9. the refiner at full width ----
     c2_res, refine_launches = run_refine(cfg, kernels, dev)
     res.update(c2_res)
-    # ---- 10. its CLI, small ----
-    run_refine_cli(dev)
-    return res, launches, train_launches, refine_launches
+    # ---- 11. the pipeline at full width ----
+    pipe_launches = run_pipeline(cfg, kernels, steps, dev)
+    # ---- 7, 10, 12. the CLIs on one small tree ----
+    with tempfile.TemporaryDirectory() as tree:
+        make_kitti_tree(tree)
+        run_cli(dev, tree)
+        run_refine_cli(dev, tree)
+        run_eval_clis(dev, tree, kernels)
+    return res, {"sampling": launches, "int8 sampling": int8_launches,
+                 "training": train_launches,
+                 "refiner training": refine_launches,
+                 "pipeline": pipe_launches}
 
 
 def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
@@ -1091,10 +1296,10 @@ def run_refine(cfg, kernels, dev):
     return c2, launches
 
 
-def run_refine_cli(dev: str) -> None:
-    """`lidiff_tpu_torch.train_refine` on a small synthetic KITTI tree: the
-    sanity validation, two steps, a resume that takes a third, `--test`."""
-    import io
+def run_refine_cli(dev: str, tmp: str) -> None:
+    """`lidiff_tpu_torch.train_refine` on the small synthetic KITTI tree
+    `tmp`: the sanity validation, two steps, a resume that takes a third,
+    `--test`."""
     from lidiff_tpu_torch import train_refine
     cfg = {
         "experiment": {"id": "chip-smoke-refine-cli"},
@@ -1107,28 +1312,25 @@ def run_refine_cli(dev: str) -> None:
         "tpu": {"full_capacities": [768, 512, 384, 256, 256]},
     }
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        make_kitti_tree(tmp)
-        cfg["data"]["data_dir"] = tmp
-        cfg_path = os.path.join(tmp, "cfg.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        argv = ["-c", cfg_path] + (["--device", "cpu"] if dev == "cpu"
-                                   else [])
-        exp = os.path.join(tmp, "experiments", "chip-smoke-refine-cli")
-        ckpts = os.path.join(exp, "checkpoints")
-        said = io.StringIO()
-        os.chdir(tmp)                 # the CLI writes ./experiments/<id>
-        try:
-            with contextlib.redirect_stdout(said):
-                # 4 scans, window 2: two windows, two steps an epoch
-                train_refine.main(argv + ["--max_steps", "2"])
-                first = sorted(os.listdir(ckpts))
-                train_refine.main(argv + ["-ckpt", exp, "--max_steps", "3"])
-                second = sorted(os.listdir(ckpts))
-                train_refine.main(argv + ["-w", exp, "--test"])
-        finally:
-            os.chdir(cwd)
+    cfg["data"]["data_dir"] = tmp
+    cfg_path = os.path.join(tmp, "cfg_refine.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    argv = ["-c", cfg_path] + (["--device", "cpu"] if dev == "cpu" else [])
+    exp = os.path.join(tmp, "experiments", "chip-smoke-refine-cli")
+    ckpts = os.path.join(exp, "checkpoints")
+    said = io.StringIO()
+    os.chdir(tmp)                     # the CLI writes ./experiments/<id>
+    try:
+        with contextlib.redirect_stdout(said):
+            # 4 scans, window 2: two windows, two steps an epoch
+            train_refine.main(argv + ["--max_steps", "2"])
+            first = sorted(os.listdir(ckpts))
+            train_refine.main(argv + ["-ckpt", exp, "--max_steps", "3"])
+            second = sorted(os.listdir(ckpts))
+            train_refine.main(argv + ["-w", exp, "--test"])
+    finally:
+        os.chdir(cwd)
     lines = said.getvalue().splitlines()
     sanity = [l for l in lines if l.startswith("sanity: cd_loss")]
     mean = [l for l in lines if l.startswith("mean test cd_loss")]
@@ -1183,9 +1385,10 @@ def make_kitti_tree(root: str, seq: str = "00", n_scans: int = 4,
             np.concatenate(world, 0).astype(np.float32))
 
 
-def run_cli(dev: str) -> None:
-    """`lidiff_tpu_torch.train` on a small synthetic KITTI tree: two steps,
-    then a resume from the experiment directory that takes a third."""
+def run_cli(dev: str, tmp: str) -> None:
+    """`lidiff_tpu_torch.train` on the small synthetic KITTI tree `tmp`:
+    two steps, then a resume from the experiment directory that takes a
+    third, then `--test` on its checkpoint."""
     from lidiff_tpu_torch import train
     cfg = {
         "experiment": {"id": "chip-smoke-cli"},
@@ -1204,30 +1407,219 @@ def run_cli(dev: str) -> None:
                 "part_capacities": [128] * 5},
     }
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        make_kitti_tree(tmp)
-        cfg["data"]["data_dir"] = tmp
-        cfg_path = os.path.join(tmp, "cfg.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        argv = ["-c", cfg_path] + (["--device", "cpu"] if dev == "cpu"
-                                   else [])
-        os.chdir(tmp)                 # the CLI writes ./experiments/<id>
-        try:
-            train.main(argv + ["--max_steps", "2"])
-            exp = os.path.join(tmp, "experiments", "chip-smoke-cli")
-            ckpts = os.path.join(exp, "checkpoints")
-            first = sorted(os.listdir(ckpts))
-            train.main(argv + ["-ckpt", exp, "--max_steps", "3"])
-            second = sorted(os.listdir(ckpts))
-        finally:
-            os.chdir(cwd)
+    cfg["data"]["data_dir"] = tmp
+    cfg_path = os.path.join(tmp, "cfg_diff.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    argv = ["-c", cfg_path] + (["--device", "cpu"] if dev == "cpu" else [])
+    exp = os.path.join(tmp, "experiments", "chip-smoke-cli")
+    ckpts = os.path.join(exp, "checkpoints")
+    said = io.StringIO()
+    os.chdir(tmp)                     # the CLI writes ./experiments/<id>
+    try:
+        train.main(argv + ["--max_steps", "2"])
+        first = sorted(os.listdir(ckpts))
+        train.main(argv + ["-ckpt", exp, "--max_steps", "3"])
+        second = sorted(os.listdir(ckpts))
+        with contextlib.redirect_stdout(said):
+            train.main(argv + ["-w", exp, "--test"])
+    finally:
+        os.chdir(cwd)
+    gen_dir = os.path.join(exp, "generated_pcd", "00")
+    plys = sorted(os.listdir(gen_dir)) if os.path.isdir(gen_dir) else []
+    scores = [l for l in said.getvalue().splitlines() if " CD " in l]
     log(f"train CLI: checkpoints after 2 steps {first}, after the resume "
-        f"{second}")
+        f"{second}; --test wrote {len(plys)} .ply files, {scores[-1:]}")
     if "step_00000002.pt" not in first or "hparams.json" not in first \
             or "step_00000003.pt" not in second:
         raise AssertionError("the train CLI did not checkpoint step 2 and "
                              "resume to step 3")
+    if not plys or len(plys) != said.getvalue().count("Saving "):
+        raise AssertionError("train --test wrote no .ply per scan")
+
+
+# ---------------------------------------------------------------------------
+# the completion pipeline and its evaluation
+# ---------------------------------------------------------------------------
+
+def run_pipeline(cfg, kernels, steps: int, dev):
+    """`DiffCompletion.complete_scan` at full width: random-init diffusion
+    and refiner checkpoints saved as the trainers save them, a PIPE_SCAN-
+    point synthetic ring scan as .bin; bf16, then int8 on the bf16 run's
+    crop and FPS (the same scan's). Host time of each stage (crop and FPS,
+    encoder and sampling, postprocess, refine; the bf16 run's .ply files
+    with normals), launches, refined = diff x up_factor; then the
+    metrics of `eval_path` against a synthetic ground truth, each with its
+    host time. Returns the int8 run's launches."""
+    import numpy as np
+    import torch
+    from lidiff_tpu_torch import config as cfg_mod
+    from lidiff_tpu_torch.models import diffusion, refine
+    from lidiff_tpu_torch.tools import diff_completion_pipeline as pipe
+    from lidiff_tpu_torch.training.trainer import CheckpointManager
+    from lidiff_tpu_torch.utils import histogram_metrics, metrics
+    n = N_PART * TILE
+    dcfg = dict(cfg, tpu=dict(cfg["tpu"], compute_dtype="bfloat16"))
+    rcfg = cfg_mod.finalize_config(make_refine_cfg(
+        n, cfg["model"]["cr"], REFINE_UP,
+        {"capacity_fractions": [1.0] * 5, "compute_dtype": "bfloat16"}))
+    gt = ring_scan(2 * n, seed=42)[0]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exps = {}
+        for name, task in (
+                ("diff_net", diffusion.DiffusionTask(dcfg, device=dev)),
+                ("refine_net", refine.RefineTask(rcfg, device=dev))):
+            exps[name] = os.path.join(tmp, name)
+            CheckpointManager(os.path.join(exps[name], "checkpoints")).save(
+                0, {"model": task.model.state_dict(), "step": 0},
+                hparams=task.cfg)
+            del task
+        scan = ring_scan(PIPE_SCAN, seed=41)[0]
+        bin_path = os.path.join(tmp, "000000.bin")
+        np.concatenate([scan, np.ones((len(scan), 1), np.float32)],
+                       1).tofile(bin_path)
+        x_init = {}
+        for quant in (False, True):
+            what = "int8" if quant else "bf16"
+            dc = pipe.DiffCompletion(exps["diff_net"], exps["refine_net"],
+                                     steps, 6.0, device=dev,
+                                     conv_quant=quant)
+            points = pipe.load_pcd(bin_path)
+            refine_counts = {}
+            refine_fn, preprocess_fn = dc.refine, dc.preprocess_scan
+            if quant:
+                # the host's crop and FPS are the bf16 run's: the same
+                # scan gives the same x_init
+                dc.preprocess_scan = lambda s: x_init["bf16"].copy()
+            else:
+                dc.preprocess_scan = lambda s: x_init.setdefault(
+                    "bf16", preprocess_fn(s))
+
+            def counted(p):
+                before = {k: v.launches for k, v in kernels.items()}
+                r = refine_fn(p)
+                refine_counts.update({k: v.launches - before[k]
+                                      for k, v in kernels.items()})
+                return r
+            dc.refine = counted
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            refined, diff = dc.complete_scan(points)
+            total = time.perf_counter() - t0
+            launches = {k: v.launches for k, v in kernels.items()}
+            st = dc.times
+            crop, written = "crop + FPS reused from the bf16 run", ""
+            if not quant:
+                t0 = time.perf_counter()
+                out_dir = os.path.join(tmp, "out")
+                for sub in ("refine", "diff"):
+                    os.makedirs(os.path.join(out_dir, sub))
+                pipe.write_outputs(out_dir, "000000.bin", refined, diff)
+                crop = f"crop + FPS {st['preprocess']:.3f} s"
+                written = (".ply files with normals "
+                           f"{time.perf_counter() - t0:.3f} s; ")
+            log(f"pipeline {what}, {len(points)}-point scan, {steps} steps: "
+                f"{total:.3f} s = {crop}, encoder + sampling "
+                f"{st['sample']:.3f} s, postprocess {st['postprocess']:.3f} "
+                f"s, refine {st['refine']:.3f} s; {written}{len(diff)} diff "
+                f"points -> {len(refined)} refined; launches {launches}, of "
+                f"them in refine {refine_counts}")
+            if not (0 < len(diff) <= n
+                    and len(refined) == REFINE_UP * len(diff)
+                    and np.isfinite(refined).all()):
+                raise AssertionError(f"pipeline {what}: refined count or "
+                                     "values wrong")
+            if dev == "cuda" and quant and not (
+                    refine_counts["A4"] > 0 and refine_counts["B1"] == 5):
+                raise AssertionError("pipeline int8: the refiner did not "
+                                     "run A4 and B1")
+            out[what] = (refined, launches)
+            del dc
+    pred = out["int8"][0]
+    times, vals = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        vals[name] = fn()
+        times[name] = time.perf_counter() - t0
+
+    cd, rmse, iou = metrics.ChamferDistance(), metrics.RMSE(), \
+        metrics.CompletionIoU()
+    pr = metrics.PrecisionRecall(0.05, 0.10, 100)
+    timed("CD", lambda: (cd.update(gt, pred), cd.compute()[0])[1])
+    timed("RMSE", lambda: (rmse.update(gt, pred), rmse.compute()[0])[1])
+    timed("PR-AUC F1", lambda: (pr.update(gt, pred), pr.compute_auc()[2])[1])
+    timed("IoU 0.5/0.2/0.1", lambda: (iou.update(gt, pred),
+                                      tuple(iou.compute().values()))[1])
+    timed("JSD 3D", lambda: histogram_metrics.compute_hist_metrics(
+        gt, pred, bev=False))
+    timed("JSD BEV", lambda: histogram_metrics.compute_hist_metrics(
+        gt, pred, bev=True))
+    log("pipeline metrics, int8 refined cloud against a "
+        f"{len(gt)}-point synthetic ground truth (host seconds): "
+        + "; ".join(f"{k} {vals[k]} ({times[k]:.3f} s)" for k in vals))
+    flat = [x for v in vals.values()
+            for x in (v if isinstance(v, tuple) else (v,))]
+    if not all(math.isfinite(x) for x in flat):
+        raise AssertionError("pipeline metrics are not finite")
+    return out["int8"][1]
+
+
+def run_eval_clis(dev: str, tree: str, kernels) -> None:
+    """The evaluation CLIs on the small tree `tree`, after the train and
+    train_refine CLI phases: `map_from_scans`, the pipeline on both
+    trained checkpoints with LIDIFF_CONV_QUANT=int8, and `eval_path` on its
+    .ply files (-p) and live (-d, -r)."""
+    import numpy as np
+    from lidiff_tpu_torch.tools import diff_completion_pipeline as pipe
+    from lidiff_tpu_torch.tools import eval_path, map_from_scans
+    dev_args = ["--device", "cpu"] if dev == "cpu" else []
+    seqs = os.path.join(tree, "dataset", "sequences")
+    seq_dir = os.path.join(seqs, "00")
+    diff_exp = os.path.join(tree, "experiments", "chip-smoke-cli")
+    refine_exp = os.path.join(tree, "experiments", "chip-smoke-refine-cli")
+    out = os.path.join(tree, "results")
+    said = io.StringIO()
+    cwd = os.getcwd()
+    os.remove(os.path.join(seq_dir, "map_clean.npy"))
+    os.chdir(tree)                    # eval_path -d writes ./res_log.yaml
+    os.environ["LIDIFF_CONV_QUANT"] = "int8"
+    try:
+        with contextlib.redirect_stdout(said):
+            map_from_scans.main(["-p", seqs, "-s", "00"])
+            for k in kernels.values():
+                k.launches = 0
+            pipe.main(["-d", diff_exp, "-r", refine_exp, "-T", "2", "-s",
+                       "6.0", "-p", os.path.join(seq_dir, "velodyne"), "-o",
+                       out] + dev_args)
+            a4 = kernels["A4"].launches
+            saved = os.path.join(out, "chip-smoke-cli_T2_s6.0", "refine")
+            res_p = eval_path.main(["-p", saved, "--data", seq_dir])
+            res_d = eval_path.main(["-d", diff_exp, "-r", refine_exp, "-t",
+                                    "2", "--data", seq_dir, "--max_scans",
+                                    "2"] + dev_args)
+    finally:
+        del os.environ["LIDIFF_CONV_QUANT"]
+        os.chdir(cwd)
+    seq_map = np.load(os.path.join(seq_dir, "map_clean.npy"))
+    n_ply = len([f for f in os.listdir(saved) if f.endswith(".ply")])
+    log(f"eval CLIs: map_from_scans {len(seq_map)} points; pipeline CLI "
+        f"(LIDIFF_CONV_QUANT=int8) {n_ply} refined .ply files, {a4} A4 "
+        f"launches; eval_path -p {json.dumps(res_p)}; eval_path -d -r "
+        f"{json.dumps(res_d)}")
+    for res in (res_p, res_d):
+        vals = [v for k, v in res.items() if k != "ious"] + list(
+            res["ious"].values())
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError("eval_path wrote a value that is not finite")
+    if not (len(seq_map) and n_ply == 4) or (dev == "cuda" and a4 == 0):
+        raise AssertionError("map_from_scans or the int8 pipeline CLI did "
+                             "not run")
+    with open(os.path.join(saved, "res_log.yaml")) as f:
+        if json.load(f) != res_p:
+            raise AssertionError("eval_path -p wrote another res_log.yaml")
 
 
 _CATEGORIES = (("A3 conv3_columns_dw", ("conv3_columns_dw",)),
@@ -1242,6 +1634,15 @@ _CATEGORIES = (("A3 conv3_columns_dw", ("conv3_columns_dw",)),
                ("sort", ("sort", "radix")),
                ("scatter/gather/index", ("index", "scatter", "gather")),
                ("copy/cast/concat", ("copy",)))
+
+
+def _category(kernel_name: str) -> str:
+    low = kernel_name.lower()
+    # A4 runs A1's tile kernels on int8 (`signed char`) feats
+    if "conv3_columns" in low and "kernel<signed char" in low:
+        return "A4 conv3_columns_q"
+    return next((c for c, keys in _CATEGORIES
+                 if any(k in low for k in keys)), "other")
 
 
 def profile_step(step, label: str) -> None:
@@ -1267,9 +1668,7 @@ def profile_step(step, label: str) -> None:
         return
     cats: dict[str, float] = {}
     for name, us in by_name.items():
-        low = name.lower()
-        cat = next((c for c, keys in _CATEGORIES
-                    if any(k in low for k in keys)), "other")
+        cat = _category(name)
         cats[cat] = cats.get(cat, 0.0) + us
     log(f"profile of {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)")
@@ -1319,39 +1718,42 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    res, sample_launches, train_launches, refine_launches = run(args.steps)
+    res, paths = run(args.steps)
     # kernel: (source, TPU kernel it replaces, the path its count is from)
     sources = {
         "A1": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:840",
-               sample_launches),
+               "sampling"),
         "B1": ("kmap3_columns", "lidiff_tpu/ops/pallas_kmap.py:120",
-               sample_launches),
-        "C1": ("nn_match", "lidiff_tpu/ops/pallas_knn.py:289",
-               sample_launches),
+               "sampling"),
+        "C1": ("nn_match", "lidiff_tpu/ops/pallas_knn.py:289", "sampling"),
         "A2": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:667",
-               train_launches),
+               "training"),
         "A3": ("conv3_columns_dw", "lidiff_tpu/ops/pallas_conv.py:568",
-               train_launches),
+               "training"),
         "C2": ("nn_match_pruned", "lidiff_tpu/ops/pallas_knn.py:403",
-               refine_launches),
+               "refiner training"),
         # the prolog's distance bound: XLA code in the JAX package, a
         # kernel of the same source here
         "C2w": ("nn_match_pruned", "lidiff_tpu/ops/pallas_knn.py:198",
-                refine_launches)}
-    for path, counts, names in (
-            ("sampling", sample_launches, ("A1", "B1", "C1")),
-            ("training", train_launches, ("A1", "A2", "A3", "B1", "C1")),
-            ("refiner training", refine_launches,
-             ("A1", "A2", "A3", "B1", "C2", "C2w"))):
+                "refiner training"),
+        "A4": ("conv3_columns_q",
+               "lidiff_tpu/ops/pallas_conv.py:840 (quant=True)",
+               "int8 sampling")}
+    for path, names in (
+            ("sampling", ("A1", "B1", "C1")),
+            ("int8 sampling", ("A1", "A4", "B1", "C1")),
+            ("training", ("A1", "A2", "A3", "B1", "C1")),
+            ("refiner training", ("A1", "A2", "A3", "B1", "C2", "C2w")),
+            ("pipeline", ("A4", "B1", "C1"))):
         for n in names:
-            if counts[n] == 0:
+            if paths[path][n] == 0:
                 raise AssertionError(f"kernel {n} was not launched on the "
                                      f"{path} path")
     line = {"kernels": [
         {"name": f"{n} {NAMES.get(n, src)}", "route": "cuda",
          "source": f"lidiff_tpu_torch/csrc/{src}.cu", "replaces": rep,
-         "launches": counts[n], **res[n]}
-        for n, (src, rep, counts) in sources.items()]}
+         "launches": paths[path][n], **res[n]}
+        for n, (src, rep, path) in sources.items()]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,13 @@ DEFAULT_TPU = {
 }
 
 
+def conv_quant_from_env() -> bool:
+    """LIDIFF_CONV_QUANT=int8 selects the int8 eval conv (kernel A4), the
+    variable the JAX package reads; only the command-line entry points read
+    it, and pass it on as the models' `conv_quant` argument."""
+    return os.environ.get("LIDIFF_CONV_QUANT", "").lower() == "int8"
+
+
 def load_config(path: str) -> dict:
     """Read a `.json` or YAML config; the TRAIN_DATABASE environment
     variable overrides `data.data_dir`, as in the reference."""

@@ -11,6 +11,8 @@ and, where it follows a conv, is folded into the conv's weights and bias. In
 train mode the conv, BatchNorm over the batch moments and ReLU run one after
 the other, the convs differentiate through `Conv3ColumnsFunction`, and a
 group count above 1 raises: grouped BatchNorm is inference-only.
+`conv_quant` selects the int8 eval conv (kernel A4) for the 27-tap convs
+with a folded BN in eval mode (see `sparse_conv_columns` for the gate).
 """
 
 from __future__ import annotations
@@ -40,10 +42,11 @@ class SparseConv(nn.Module):
     over a DownMap; kernel [taps, Cin, Cout]."""
 
     def __init__(self, cin: int, cout: int, taps: int = 27,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, conv_quant: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(taps, cin, cout))
         self.compute_dtype = compute_dtype
+        self.conv_quant = conv_quant
 
     def forward(self, feats, kmap, out_mask, groups: int, w_scale=None,
                 bias=None, relu: bool = False):
@@ -51,7 +54,8 @@ class SparseConv(nn.Module):
         if isinstance(kmap, ColumnKernelMap):
             return sparse_conv_columns(feats, kmap, w, out_mask,
                                        groups=groups, bias=bias, relu=relu,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       quant=self.conv_quant)
         if isinstance(kmap, DownMap):
             return sparse_conv_down(feats, kmap.parent_idx, kmap.tap, w,
                                     out_mask, groups=groups, bias=bias,
@@ -125,9 +129,10 @@ class ConvBNReLU(nn.Module):
     the ks=2/stride-2 down conv."""
 
     def __init__(self, cin: int, cout: int, taps: int = 27,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, conv_quant: bool = False):
         super().__init__()
-        self.SparseConv_0 = SparseConv(cin, cout, taps, compute_dtype)
+        self.SparseConv_0 = SparseConv(cin, cout, taps, compute_dtype,
+                                       conv_quant)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cout)
 
     def forward(self, feats, kmap, out_mask, groups: int):
@@ -156,11 +161,14 @@ class ResidualBlock(nn.Module):
     """Two 27-tap conv+BN (the first with ReLU) plus a shortcut: identity,
     or a bias-free 1x1 Dense + BN (not folded) when the width changes."""
 
-    def __init__(self, cin: int, cout: int, compute_dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, compute_dtype=torch.float32,
+                 conv_quant: bool = False):
         super().__init__()
-        self.SparseConv_0 = SparseConv(cin, cout, 27, compute_dtype)
+        self.SparseConv_0 = SparseConv(cin, cout, 27, compute_dtype,
+                                       conv_quant)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cout)
-        self.SparseConv_1 = SparseConv(cout, cout, 27, compute_dtype)
+        self.SparseConv_1 = SparseConv(cout, cout, 27, compute_dtype,
+                                       conv_quant)
         self.MaskedBatchNorm_1 = MaskedBatchNorm(cout)
         if cin != cout:
             self.Dense_0 = nn.Linear(cin, cout, bias=False)
@@ -222,11 +230,13 @@ class DownStage(nn.Module):
     coarser level."""
 
     def __init__(self, cin: int, mid: int, out: int,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, conv_quant: bool = False):
         super().__init__()
         self.ConvBNReLU_0 = ConvBNReLU(cin, mid, 8, compute_dtype)
-        self.ResidualBlock_0 = ResidualBlock(mid, out, compute_dtype)
-        self.ResidualBlock_1 = ResidualBlock(out, out, compute_dtype)
+        self.ResidualBlock_0 = ResidualBlock(mid, out, compute_dtype,
+                                             conv_quant)
+        self.ResidualBlock_1 = ResidualBlock(out, out, compute_dtype,
+                                             conv_quant)
 
     def forward(self, feats, fine: LevelGeom, coarse: LevelGeom,
                 groups: int):
@@ -242,12 +252,13 @@ class UpStage(nn.Module):
     residual blocks."""
 
     def __init__(self, cin: int, skip: int, up_ch: int,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, conv_quant: bool = False):
         super().__init__()
         self.DeconvBNReLU_0 = DeconvBNReLU(cin, up_ch, compute_dtype)
         self.ResidualBlock_0 = ResidualBlock(up_ch + skip, up_ch,
-                                             compute_dtype)
-        self.ResidualBlock_1 = ResidualBlock(up_ch, up_ch, compute_dtype)
+                                             compute_dtype, conv_quant)
+        self.ResidualBlock_1 = ResidualBlock(up_ch, up_ch, compute_dtype,
+                                             conv_quant)
 
     def forward(self, coarse_feats, skip_feats, fine: LevelGeom,
                 groups: int):
@@ -262,10 +273,13 @@ class UpStage(nn.Module):
 class Stem(nn.Module):
     """Two 27-tap conv+BN+ReLU at stride 1."""
 
-    def __init__(self, cin: int, features: int, compute_dtype=torch.float32):
+    def __init__(self, cin: int, features: int, compute_dtype=torch.float32,
+                 conv_quant: bool = False):
         super().__init__()
-        self.ConvBNReLU_0 = ConvBNReLU(cin, features, 27, compute_dtype)
-        self.ConvBNReLU_1 = ConvBNReLU(features, features, 27, compute_dtype)
+        self.ConvBNReLU_0 = ConvBNReLU(cin, features, 27, compute_dtype,
+                                       conv_quant)
+        self.ConvBNReLU_1 = ConvBNReLU(features, features, 27, compute_dtype,
+                                       conv_quant)
 
     def forward(self, feats, level: LevelGeom, groups: int = 1):
         mask = level.geom.mask

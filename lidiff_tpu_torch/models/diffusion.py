@@ -37,10 +37,10 @@ class DiffusionModel(nn.Module):
     the JAX tree (`partial_enc`, `denoiser`)."""
 
     def __init__(self, out_dim: int = 96, cr: float = 1.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, conv_quant: bool = False):
         super().__init__()
-        self.partial_enc = MinkGlobalEnc(cr, compute_dtype)
-        self.denoiser = MinkUNetDiff(out_dim, cr, compute_dtype)
+        self.partial_enc = MinkGlobalEnc(cr, compute_dtype, conv_quant)
+        self.denoiser = MinkUNetDiff(out_dim, cr, compute_dtype, conv_quant)
 
     def encode_partial(self, pyr_part: Pyramid):
         return self.partial_enc(pyr_part)
@@ -77,9 +77,11 @@ class DiffusionTask:
     Runs on `device` (default: the card) with `compute_dtype` (default: the
     config's `tpu.compute_dtype`). The weights are a seeded random init
     (`seed`); `lidiff_tpu_torch.convert.load_jax_variables` replaces them
-    with a JAX checkpoint's."""
+    with a JAX checkpoint's. `conv_quant` selects the int8 eval conv
+    (kernel A4) for sampling; training never quantizes."""
 
-    def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0):
+    def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0,
+                 conv_quant: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
@@ -98,7 +100,8 @@ class DiffusionTask:
                                       device=self.device)
         self.model = DiffusionModel(out_dim=cfg["model"]["out_dim"],
                                     cr=float(cfg["model"].get("cr", 1.0)),
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype,
+                                    conv_quant=conv_quant)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
         self.resolution = float(cfg["data"]["resolution"])

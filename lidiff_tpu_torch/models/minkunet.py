@@ -6,6 +6,8 @@ GEMMs cast to the compute dtype; nothing is rematerialized in the backward
 pass (`tpu.remat` of the config is read by nobody here).
 
 Channel plan cs = [32, 32, 64, 128, 256, 256, 128, 96, 96] scaled by `cr`.
+`conv_quant` selects the int8 eval conv (kernel A4) for every eval column
+conv with Cin >= 32 (`lidiff_tpu_torch.ops.sparse_conv`).
 """
 
 from __future__ import annotations
@@ -43,15 +45,16 @@ def _channels(cr: float) -> list[int]:
 class MinkGlobalEnc(nn.Module):
     """Partial-scan encoder: stem + 4 down stages -> stage-4 features."""
 
-    def __init__(self, cr: float = 1.0, compute_dtype=torch.float32):
+    def __init__(self, cr: float = 1.0, compute_dtype=torch.float32,
+                 conv_quant: bool = False):
         super().__init__()
         cs = _channels(cr)
-        cd = compute_dtype
-        self.Stem_0 = Stem(3, cs[0], cd)
-        self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd)
-        self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd)
-        self.DownStage_2 = DownStage(cs[2], cs[2], cs[3], cd)
-        self.DownStage_3 = DownStage(cs[3], cs[3], cs[4], cd)
+        cd, cq = compute_dtype, conv_quant
+        self.Stem_0 = Stem(3, cs[0], cd, cq)
+        self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd, cq)
+        self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd, cq)
+        self.DownStage_2 = DownStage(cs[2], cs[2], cs[3], cd, cq)
+        self.DownStage_3 = DownStage(cs[3], cs[3], cs[4], cd, cq)
 
     def forward(self, pyr: Pyramid):
         # the encoder keeps float32 activations; each conv casts its input
@@ -105,33 +108,33 @@ class MinkUNetDiff(nn.Module):
     [B, N, G, 3] for G conditioning banks fused into one grouped pass."""
 
     def __init__(self, out_dim: int = 96, cr: float = 1.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, conv_quant: bool = False):
         super().__init__()
         cs = _channels(cr)
-        cd = compute_dtype
+        cd, cq = compute_dtype, conv_quant
         self.out_dim = out_dim
         self.compute_dtype = cd
 
         def gate(out, hidden, swap=False):
             return StageGate(out, hidden, cs[4], out_dim, swap, cd)
 
-        self.Stem_0 = Stem(3, cs[0], cd)
+        self.Stem_0 = Stem(3, cs[0], cd, cq)
         self.gate_s1 = gate(cs[0], cs[4])
-        self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd)
+        self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd, cq)
         self.gate_s2 = gate(cs[1], cs[4])
-        self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd)
+        self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd, cq)
         self.gate_s3 = gate(cs[2], cs[4])
-        self.DownStage_2 = DownStage(cs[2], cs[2], cs[3], cd)
+        self.DownStage_2 = DownStage(cs[2], cs[2], cs[3], cd, cq)
         self.gate_s4 = gate(cs[3], cs[4])
-        self.DownStage_3 = DownStage(cs[3], cs[3], cs[4], cd)
+        self.DownStage_3 = DownStage(cs[3], cs[3], cs[4], cd, cq)
         self.gate_u1 = gate(cs[4], cs[4], swap=True)
-        self.UpStage_0 = UpStage(cs[4], cs[3], cs[5], cd)
+        self.UpStage_0 = UpStage(cs[4], cs[3], cs[5], cd, cq)
         self.gate_u2 = gate(cs[5], cs[5])
-        self.UpStage_1 = UpStage(cs[5], cs[2], cs[6], cd)
+        self.UpStage_1 = UpStage(cs[5], cs[2], cs[6], cd, cq)
         self.gate_u3 = gate(cs[6], cs[6])
-        self.UpStage_2 = UpStage(cs[6], cs[1], cs[7], cd)
+        self.UpStage_2 = UpStage(cs[6], cs[1], cs[7], cd, cq)
         self.gate_u4 = gate(cs[7], cs[7])
-        self.UpStage_3 = UpStage(cs[7], cs[0], cs[8], cd)
+        self.UpStage_3 = UpStage(cs[7], cs[0], cs[8], cd, cq)
         self.head = MLP(cs[8], 20, 3, cd)
 
     def forward(self, pyr: Pyramid, banks, t: torch.Tensor):
@@ -193,20 +196,20 @@ class MinkUNet(nn.Module):
     [B, N, out_channels] float32."""
 
     def __init__(self, out_channels: int = 18, cr: float = 1.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, conv_quant: bool = False):
         super().__init__()
         cs = _channels(cr)
-        cd = compute_dtype
+        cd, cq = compute_dtype, conv_quant
         self.compute_dtype = cd
-        self.Stem_0 = Stem(3, cs[0], cd)
-        self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd)
-        self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd)
-        self.DownStage_2 = DownStage(cs[2], cs[2], cs[3], cd)
-        self.DownStage_3 = DownStage(cs[3], cs[3], cs[4], cd)
-        self.UpStage_0 = UpStage(cs[4], cs[3], cs[5], cd)
-        self.UpStage_1 = UpStage(cs[5], cs[2], cs[6], cd)
-        self.UpStage_2 = UpStage(cs[6], cs[1], cs[7], cd)
-        self.UpStage_3 = UpStage(cs[7], cs[0], cs[8], cd)
+        self.Stem_0 = Stem(3, cs[0], cd, cq)
+        self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd, cq)
+        self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd, cq)
+        self.DownStage_2 = DownStage(cs[2], cs[2], cs[3], cd, cq)
+        self.DownStage_3 = DownStage(cs[3], cs[3], cs[4], cd, cq)
+        self.UpStage_0 = UpStage(cs[4], cs[3], cs[5], cd, cq)
+        self.UpStage_1 = UpStage(cs[5], cs[2], cs[6], cd, cq)
+        self.UpStage_2 = UpStage(cs[6], cs[1], cs[7], cd, cq)
+        self.UpStage_3 = UpStage(cs[7], cs[0], cs[8], cd, cq)
         self.head = MLP(cs[8], 20, out_channels, cd)
 
     def forward(self, pyr: Pyramid):

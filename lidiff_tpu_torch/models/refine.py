@@ -22,9 +22,11 @@ class RefineTask:
     Runs on `device` (default: the card) with `compute_dtype` (default: the
     config's `tpu.compute_dtype`). The weights are a seeded random init
     (`seed`); `lidiff_tpu_torch.convert.load_jax_variables` replaces them
-    with a JAX checkpoint's."""
+    with a JAX checkpoint's. `conv_quant` selects the int8 eval conv
+    (kernel A4) for `forward`; training never quantizes."""
 
-    def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0):
+    def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0,
+                 conv_quant: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
@@ -34,7 +36,8 @@ class RefineTask:
         self.up_factor = int(cfg["train"]["up_factor"])
         self.model = MinkUNet(out_channels=3 * self.up_factor,
                               cr=float(cfg.get("model", {}).get("cr", 1.0)),
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype,
+                              conv_quant=conv_quant)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
         self.resolution = float(cfg["data"]["resolution"])

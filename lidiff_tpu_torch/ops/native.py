@@ -4,8 +4,10 @@ Each `csrc/<name>.cu` exposes a plain C function and is compiled by `nvcc`
 into its own shared library under `lidiff_tpu_torch/_build/`, then loaded
 with ctypes. No PyTorch headers are included, so a build takes seconds.
 The first kernel call builds every missing library, one `nvcc` process per
-source, all started together. Library names carry a hash of the source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+source, all started together. Library names carry a hash of the flags, the
+source and the local headers it includes (A1 and A4 share
+`conv3_columns_tile.cuh`), so an edited source or header is rebuilt and a
+stale library is never loaded.
 Nothing is built or loaded when a module is imported.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("kmap3_columns", "conv3_columns", "conv3_columns_dw",
-           "nn_match", "nn_match_pruned")
+           "conv3_columns_q", "nn_match", "nn_match_pruned")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -45,8 +48,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library of `csrc/<name>.cu`, named by a hash of the flags, the
+    source and the local headers it includes (`#include "..."`)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        src = f.read()
+    digest.update(src)
+    for header in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

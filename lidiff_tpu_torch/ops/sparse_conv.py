@@ -18,6 +18,16 @@ lidiff_tpu/ops/pallas_conv.py:667-719): the feats gradient is kernel A1 on
 the masked cotangent with tap-reversed, transposed weights over the same
 map, and the weight gradient is kernel A3 (`csrc/conv3_columns_dw.cu`),
 with `conv3_columns_dw_plain` as its plain version.
+
+The int8 eval conv is kernel A4 (`csrc/conv3_columns_q.cu`, counterpart of
+conv_columns_pallas_v2(quant=True), lidiff_tpu/ops/pallas_conv.py:840):
+`sparse_conv_columns(..., quant=True)` quantizes the input of every column
+conv with the eval epilogue and Cin >= 32 per channel to int8, folds the
+scales into the weights (`quantize_feats`) and runs A4 on CUDA tensors,
+`conv3_columns_q_plain` on CPU tensors. The JAX package selects this path
+with the process flag LIDIFF_CONV_QUANT=int8; here the flag is the models'
+`conv_quant` argument, which only the command-line entry points read from
+that variable.
 """
 
 from __future__ import annotations
@@ -44,6 +54,19 @@ _conv3_kernel = native.Kernel(
      ctypes.c_void_p, ctypes.c_void_p,                   # nvalid, out
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # V C Co G
      ctypes.c_int, ctypes.c_void_p])                     # relu, stream
+
+_conv3_q_kernel = native.Kernel(
+    "conv3_columns_q", "conv3_columns_q",
+    [ctypes.c_int, ctypes.c_int,                       # dtype codes
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, col, hit
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # w', bias, mask
+     ctypes.c_void_p, ctypes.c_void_p,                   # nvalid, out
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # V C Co G
+     ctypes.c_int, ctypes.c_void_p])                     # relu, stream
+
+# the int8 path quantizes activation convs only: the stem's input carries
+# raw coordinates that 8 bits cannot represent (pallas_conv.py:1018-1031)
+QUANT_MIN_CIN = 32
 
 _conv3_dw_kernel = native.Kernel(
     "conv3_columns_dw", "conv3_columns_dw",
@@ -159,6 +182,87 @@ def _conv3_run(feats, col_idx, hit, weights, out_mask, groups, bias, relu,
                   native.ptr(weights), native.ptr(bias), native.ptr(out_mask),
                   native.ptr(nvalid), native.ptr(out), V, C, Co, G,
                   int(relu), native.stream(feats.device))
+    return out
+
+
+def quantize_feats(feats, weights, groups):
+    """The prologue of kernel A4, the Pallas kernel's formula
+    (lidiff_tpu/ops/pallas_conv.py:911-927): per-channel symmetric int8 with
+    one scale per channel over all V rows and all groups (the cond and
+    uncond streams share it), the scale folded into the weights.
+
+    feats [V, G*C] and weights [27, C, Co] in the compute dtype. Returns
+    (q [V, G*C] int8, w' [27, C, Co] in the weights' dtype); a bf16 w' is
+    rounded twice (weights, then w * scale), as in the JAX package."""
+    V = feats.shape[0]
+    C = weights.shape[1]
+    f3 = feats.float().reshape(V, groups, C)
+    amax = f3.abs().amax((0, 1))
+    # times the float32 reciprocal, as :917 does; not a division by 127
+    scale = amax.clamp(min=1e-12) * (1.0 / 127.0)
+    q = (f3 / scale).round().clamp(-127, 127).to(torch.int8)
+    w_q = (weights.float() * scale[None, :, None]).to(weights.dtype)
+    return q.reshape(V, groups * C), w_q
+
+
+def conv3_columns_q_plain(q, col_idx, hit, w_q, out_mask, groups, bias=None,
+                          relu=False, out_dtype=None):
+    """Plain PyTorch version of kernel A4: kernel A1's plain version on the
+    int8 feats as float (exact) and the scale-folded weights; float32
+    accumulation, one final cast (default: the weights' dtype)."""
+    return conv3_columns_plain(q, col_idx, hit, w_q, out_mask, groups, bias,
+                               relu, out_dtype or w_q.dtype)
+
+
+def conv3_columns_q(feats, col_idx, hit, weights, out_mask, groups, *,
+                    bias=None, relu=False, out_dtype=None, nvalid=None):
+    """The int8 eval conv: `quantize_feats`, then kernel A4 on CUDA tensors
+    or its plain version on CPU tensors. Eval-only: no autograd."""
+    q, w_q = quantize_feats(feats, weights, groups)
+    return _conv3_q_run(q, col_idx, hit, w_q, out_mask, groups, bias, relu,
+                        out_dtype or feats.dtype, nvalid)
+
+
+def _conv3_q_run(q, col_idx, hit, w_q, out_mask, groups, bias, relu,
+                 out_dtype, nvalid):
+    """One launch of kernel A4 (CUDA) or one plain int8 conv (CPU)."""
+    if q.device.type == "cpu":
+        return conv3_columns_q_plain(q, col_idx, hit, w_q, out_mask, groups,
+                                     bias, relu, out_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"conv3_columns_q: unsupported device {q.device}")
+    V = q.shape[0]
+    Kt, C, Co = w_q.shape
+    G = groups
+    if q.dtype != torch.int8 or (w_q.dtype, out_dtype) not in _PAIRS:
+        raise ValueError(f"conv3_columns_q: feats {q.dtype}, weights "
+                         f"{w_q.dtype} -> {out_dtype}")
+    if Kt != 27 or q.shape != (V, G * C) or col_idx.shape != (V, 9) \
+            or hit.shape != (V, 27) or out_mask.shape != (V,) or V == 0:
+        raise ValueError("conv3_columns_q: shape mismatch")
+    if C > MAX_CIN or G not in (1, 2):
+        raise ValueError(f"conv3_columns_q: C={C} > {MAX_CIN} or G={G}")
+    if col_idx.dtype != torch.int32 or hit.dtype != torch.bool \
+            or out_mask.dtype != torch.bool:
+        raise ValueError("conv3_columns_q: want int32 col_idx, bool hit/mask")
+    if (q.data_ptr() | w_q.data_ptr()) % 16:
+        raise ValueError("conv3_columns_q: feats and weights must start on "
+                         "a 16-byte boundary (the kernel's vector loads)")
+    if nvalid is None:
+        nvalid = torch.full((), V, dtype=torch.int32, device=q.device)
+    if bias is not None:
+        bias = bias.float().contiguous()
+        if bias.shape != (Co,):
+            raise ValueError("conv3_columns_q: bias shape")
+    nvalid = nvalid.to(torch.int32)
+    native.check_cuda("conv3_columns_q", q, col_idx, hit, w_q, out_mask,
+                      nvalid, *([bias] if bias is not None else []))
+    out = torch.empty(V, G * Co, dtype=out_dtype, device=q.device)
+    _conv3_q_kernel(_DTYPE_CODE[w_q.dtype], _DTYPE_CODE[out_dtype],
+                    native.ptr(q), native.ptr(col_idx), native.ptr(hit),
+                    native.ptr(w_q), native.ptr(bias), native.ptr(out_mask),
+                    native.ptr(nvalid), native.ptr(out), V, C, Co, G,
+                    int(relu), native.stream(q.device))
     return out
 
 
@@ -282,14 +386,25 @@ class Conv3ColumnsFunction(torch.autograd.Function):
 
 def sparse_conv_columns(feats, kmap: ColumnKernelMap, weights, out_mask, *,
                         groups: int = 1, bias=None, relu: bool = False,
-                        compute_dtype=torch.float32):
+                        compute_dtype=torch.float32, quant: bool = False):
     """27-tap sparse conv over a column kernel map with the fused
     bias/ReLU/mask epilogue. Inputs and weights are cast to
-    `compute_dtype`; the output keeps feats' dtype."""
-    return conv3_columns(feats.to(compute_dtype).contiguous(), kmap.col_idx,
-                         kmap.hit, weights.to(compute_dtype).contiguous(),
-                         out_mask, groups, bias=bias, relu=relu,
-                         out_dtype=feats.dtype, nvalid=kmap.nvalid)
+    `compute_dtype`; the output keeps feats' dtype.
+
+    `quant` selects the int8 eval conv (kernel A4) under the JAX package's
+    gate (lidiff_tpu/ops/sparse_conv.py:139-167): only a conv with the eval
+    epilogue (bias or ReLU: the folded BN) and Cin >= QUANT_MIN_CIN, and
+    never one under autograd. Every other conv is kernel A1."""
+    cf = feats.to(compute_dtype).contiguous()
+    cw = weights.to(compute_dtype).contiguous()
+    run = conv3_columns
+    if quant and (bias is not None or relu) \
+            and weights.shape[1] >= QUANT_MIN_CIN \
+            and not (torch.is_grad_enabled()
+                     and (cf.requires_grad or cw.requires_grad)):
+        run = conv3_columns_q
+    return run(cf, kmap.col_idx, kmap.hit, cw, out_mask, groups, bias=bias,
+               relu=relu, out_dtype=feats.dtype, nvalid=kmap.nvalid)
 
 
 def sparse_conv_down(feats, parent_idx, tap, weights, out_mask, *,

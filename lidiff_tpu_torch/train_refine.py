@@ -9,7 +9,8 @@ CONFIG is a `.json` or YAML file with the reference schema. Training runs
 on the card unless `--device cpu` is given. One validation batch runs
 before training, 5% of the validation split every five epochs, and `--test`
 evaluates the whole split. A validation that fails raises: the JAX CLI
-prints the error and trains on.
+prints the error and trains on. LIDIFF_CONV_QUANT=int8 runs the eval
+forward's convs as the int8 conv (kernel A4); training never quantizes.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import time
 import numpy as np
 import torch
 
-from lidiff_tpu_torch.config import load_config, save_config
+from lidiff_tpu_torch.config import (conv_quant_from_env, load_config,
+                                     save_config)
 from lidiff_tpu_torch.data.datasets import dataloaders_refine
 from lidiff_tpu_torch.models.refine import RefineTask
 from lidiff_tpu_torch.ops.chamfer import chamfer_distance
@@ -53,7 +55,8 @@ def main(argv=None) -> None:
     np.random.seed(42)
     cfg = load_config(args.config)
 
-    task = RefineTask(cfg, device=args.device, seed=42)
+    task = RefineTask(cfg, device=args.device, seed=42,
+                      conv_quant=conv_quant_from_env())
     data = dataloaders_refine[cfg["data"]["dataloader"]](cfg)
 
     exp_dir = os.path.join("experiments", cfg["experiment"]["id"])

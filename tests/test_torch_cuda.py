@@ -18,6 +18,9 @@ float32 operands within 1e-4 of max|ref| in float32 and 5e-4 in bf16: both
 sum float32 products, the kernel over blocks with atomics in an order that
 changes from run to run, and in bf16 on the tensor cores, which truncate
 where they add to the float32 accumulator.
+A4 (the int8 eval conv) is held to its plain version on the same int8
+feats and folded weights as A1 is to its own, on widths that are and are
+not multiples of 16 (the 16-byte int8 loads and the scalar path).
 The differentiable conv (A2) is held to the same backward rule on the CPU:
 its feats gradient like A1 (float32 1e-5 of max|ref|; bf16 one bf16 ulp
 plus 1e-4 of max|ref|), its weight gradient like A3 plus, in bf16, the one
@@ -124,6 +127,58 @@ def test_conv3_columns_rejects_bad_input(dev):
         sparse_conv.conv3_columns(f, km.col_idx, km.hit, w, g.mask, 3)
     with pytest.raises(ValueError):      # tensors on two devices
         sparse_conv.conv3_columns(f, km.col_idx.cpu(), km.hit, w, g.mask, 1)
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("cin,cout,G", [(32, 8, 1), (40, 24, 2), (48, 72, 2),
+                                        (64, 64, 1)])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_conv3_columns_q(dev, dtype, out_dtype, cin, cout, G, epilogue):
+    pyr = _pyramid(dev, 300, [1024, 512], seed=cin)
+    lvl = pyr.levels[0]
+    g, km = lvl.geom, lvl.kmap3
+    assert int(km.nvalid) < g.capacity          # tiles past nvalid exist
+    gen = torch.Generator(device=dev).manual_seed(cin * cout)
+    f = torch.randn(g.capacity, G * cin, generator=gen, device=dev)
+    f = (f * g.mask[:, None]).to(dtype)
+    w = (torch.randn(27, cin, cout, generator=gen, device=dev)
+         / math.sqrt(27 * cin)).to(dtype)
+    bias = 0.1 * torch.randn(cout, generator=gen, device=dev) \
+        if epilogue else None
+    q, w_q = sparse_conv.quantize_feats(f, w, G)
+    args = (q, km.col_idx, km.hit, w_q, g.mask, G, bias, epilogue, out_dtype)
+    before = sparse_conv._conv3_q_kernel.launches
+    got = sparse_conv._conv3_q_run(*args, km.nvalid)
+    assert sparse_conv._conv3_q_kernel.launches == before + 1
+    ref = sparse_conv.conv3_columns_q_plain(*args)
+    assert got.dtype == out_dtype
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+    else:
+        ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+        assert bool((err <= ulp * ref.abs() + 1e-4 * scale).all())
+
+
+def test_conv3_columns_q_rejects_bad_input(dev):
+    pyr = _pyramid(dev, 50, [128])
+    g, km = pyr.levels[0].geom, pyr.levels[0].kmap3
+    q = torch.zeros(g.capacity, 32, dtype=torch.int8, device=dev)
+    w = torch.zeros(27, 32, 4, device=dev)
+    run = sparse_conv._conv3_q_run
+    with pytest.raises(ValueError):      # feats not int8
+        run(q.float(), km.col_idx, km.hit, w, g.mask, 1, None, False,
+            torch.float32, None)
+    with pytest.raises(ValueError):      # channels do not split into G
+        run(q, km.col_idx, km.hit, w, g.mask, 3, None, False, torch.float32,
+            None)
+    with pytest.raises(ValueError):      # tensors on two devices
+        run(q, km.col_idx.cpu(), km.hit, w, g.mask, 1, None, False,
+            torch.float32, None)
 
 
 BF16_ULP = 2.0 ** -7

@@ -219,10 +219,23 @@ def test_train_cli_steps_then_resume(tree, tmp_path, monkeypatch, capsys):
     assert "TRAINING MODE (cpu)" in capsys.readouterr().out
 
 
-def test_train_cli_test_mode_is_not_ported(tree, tmp_path, monkeypatch):
+def test_train_cli_test_mode_is_not_ported(tree, tmp_path, monkeypatch,
+                                           capsys):
+    """`--test`, which the earlier slices left unported and which raised,
+    now samples the validation split: one finite .ply per scan under
+    generated_pcd/<seq>/, and a second run skips the scans it finds."""
+    from lidiff_tpu_torch.utils.ply import read_ply
     monkeypatch.chdir(tmp_path)
     cfg_path = str(tmp_path / "cfg.json")
     with open(cfg_path, "w") as f:
-        json.dump(_cfg(tree, "cli_test"), f)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_mod.main(["-c", cfg_path, "--test", "--device", "cpu"])
+        json.dump(_cfg(tree, "cli_test", batch_size=1), f)
+    train_mod.main(["-c", cfg_path, "--test", "--device", "cpu"])
+    out = capsys.readouterr().out
+    seq_dir = tmp_path / "experiments" / "cli_test" / "generated_pcd" / "00"
+    plys = sorted(os.listdir(seq_dir))
+    assert plys and len(plys) == out.count("Saving ")
+    for name in plys:
+        pts = read_ply(str(seq_dir / name))["points"]
+        assert len(pts) and np.isfinite(pts).all()
+    train_mod.main(["-c", cfg_path, "--test", "--device", "cpu"])
+    assert "Skipping generation" in capsys.readouterr().out

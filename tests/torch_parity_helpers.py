@@ -1,8 +1,12 @@
 """Shared inputs for the parity tests of the PyTorch port against the JAX
-package (tests/test_torch_*.py): seeded numpy scans, a tiny config, and a
-seeded random JAX variables tree for the weight bridge."""
+package (tests/test_torch_*.py): seeded numpy scans, a tiny config, a
+seeded random JAX variables tree for the weight bridge, the small conv
+pyramid of tests/test_pallas_conv.py, and a context that turns on the JAX
+package's int8 eval conv."""
 
 from __future__ import annotations
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -70,3 +74,25 @@ def random_variables(jax_task, seed: int = 0, **init_sizes):
 
 def to_jax(variables):
     return jax.tree_util.tree_map(jnp.asarray, variables)
+
+
+# the pyramid of tests/test_pallas_conv.py:18-24: 1600 points, res 0.25
+SMALL_CAPS = [1280, 896, 640, 512, 384]
+SMALL_RES = 0.25
+
+
+def small_pyramid_points() -> np.ndarray:
+    return np.random.default_rng(0).normal(0, 4, (1, 1600, 3)).astype(
+        np.float32)
+
+
+@contextlib.contextmanager
+def jax_conv_quant():
+    """The JAX package's LIDIFF_CONV_QUANT=int8 for the calls traced inside
+    (the flag is read while tracing), reset afterwards."""
+    from lidiff_tpu.ops import sparse_conv as jsc
+    jsc.set_conv_quant(True)
+    try:
+        yield
+    finally:
+        jsc.set_conv_quant(False)
