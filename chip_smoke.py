@@ -230,9 +230,48 @@ def check_c1(pyr, banks, knn):
     return out["cond"]
 
 
-def check_a1(pyr, sc, dev):
+def _computed_taps(pattern):
+    """Tap products the bf16 kernel computes for rows in this order: 64 per
+    tap that some row of each 64-row tile hits."""
+    import torch
+    from lidiff_tpu_torch.ops import grid
+    taps = grid.tile_taps(pattern)
+    bits = (taps[:, None] >> torch.arange(27, device=taps.device)) & 1
+    return grid.TILE_ROWS * int(bits.sum())
+
+
+def plan_stats(pyr, dev, what: str):
+    """Per level of `pyr`: the tile plan's build time, and the computed tap
+    products over hit taps (the redundancy) with 64-row tiles in key order
+    and in plan order. Returns {level: (hit taps, computed in key order,
+    computed in plan order)}."""
+    import torch
+    from lidiff_tpu_torch.ops import grid
+    stats = {}
+    for li, lvl in enumerate(pyr.levels):
+        km, g = lvl.kmap3, lvl.geom
+        ms = (_time_ms(lambda: grid.tile_plan(km.hit), 5) if dev == "cuda"
+              else float("nan"))
+        pattern = grid.hit_patterns(km.hit, g.mask)
+        plan = km.plan()
+        hits = int(km.hit.sum())
+        before = _computed_taps(pattern)
+        after = _computed_taps(pattern[plan.order.long()])
+        zero = int((plan.tile_taps == 0).sum())
+        stats[li] = (hits, before, after)
+        log(f"tile plan {what} L{li}: V={g.capacity}, "
+            f"{hits / max(int(g.mask.sum()), 1):.2f} hit taps/voxel; "
+            f"computed/hit taps {before / max(hits, 1):.2f}x in key order, "
+            f"{after / max(hits, 1):.2f}x in plan order; "
+            f"{zero} of {plan.tile_taps.shape[0]} tiles with no tap; "
+            f"build {ms:.4f} ms")
+    return stats
+
+
+def check_a1(pyr, sc, dev, stats):
     """A1 against its plain version at every width of the path, G in {1, 2},
-    float32 and bf16, with bias, ReLU and the mask."""
+    float32 and bf16, with bias, ReLU and the mask; bf16 over the map's
+    tile plan. `stats` from plan_stats(pyr)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(1)
     cases, timed = [], None
@@ -249,7 +288,8 @@ def check_a1(pyr, sc, dev):
                 b = 0.1 * torch.randn(cout, generator=gen, device=dev)
                 args = (f, km.col_idx, km.hit, w, g.mask, G)
                 got = sc.conv3_columns(*args, bias=b, relu=True,
-                                       nvalid=km.nvalid).float()
+                                       nvalid=km.nvalid,
+                                       plan=km.plan()).float()
                 ref = sc.conv3_columns_plain(*args, bias=b, relu=True).float()
                 err = (got - ref).abs()
                 scale = float(ref.abs().max())
@@ -272,16 +312,21 @@ def check_a1(pyr, sc, dev):
     # time each width at the group count and dtype of the sampling path
     for cin, cout, li, G, args, b, km, g, err in cases:
         V = g.capacity
+        plan = km.plan()
         ms = _time_ms(lambda: sc.conv3_columns(*args, bias=b, relu=True,
-                                               nvalid=km.nvalid))
+                                               nvalid=km.nvalid, plan=plan))
         hits = int(km.hit[g.mask].sum())
         flops = 2.0 * hits * cin * cout * G
+        _, before, after = stats[li]
         nbytes = (V * G * cin * 2 + V * 9 * 4 + V * 27 + V
                   + 27 * cin * cout * 2 + cout * 4 + V * G * cout * 2)
         bound, by = _bound_ms(flops, PEAK_BF16, nbytes)
         log(f"A1 time ({cin:3d},{cout:3d}) L{li} G={G} bf16, "
             f"{hits / int(g.mask.sum()):.2f} hit taps/voxel: {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms ({by})")
+            f"({flops / ms / 1e9:.1f} TFLOP/s over hit taps, "
+            f"{flops * after / hits / ms / 1e9:.1f} over computed taps; "
+            f"computed/hit {before / hits:.2f}x key order, "
+            f"{after / hits:.2f}x plan), bound {bound:.4f} ms ({by})")
         if (cin, cout, li, G) == A1_TIMED:
             plain_ms = _time_ms(lambda: sc.conv3_columns_plain(
                 *args, bias=b, relu=True), 3)
@@ -336,7 +381,8 @@ def check_a4(pyr, sc, dev):
                 q, w_q = sc.quantize_feats(f, w, G)
                 check_prologue(f, w, G, q, w_q)
                 qargs = (q, km.col_idx, km.hit, w_q, g.mask, G, b, True, dt)
-                got = sc._conv3_q_run(*qargs, km.nvalid).float()
+                got = sc._conv3_q_run(*qargs, km.nvalid,
+                                      km.plan()).float()
                 ref = sc.conv3_columns_q_plain(*qargs).float()
                 err = (got - ref).abs()
                 scale = float(ref.abs().max())
@@ -351,10 +397,11 @@ def check_a4(pyr, sc, dev):
                         f"{float(err.max()):.3g} at scale {scale:.3g}")
                 if G == 1 or dt == torch.float32:
                     continue
-                ms = _time_ms(lambda: sc._conv3_q_run(*qargs, km.nvalid))
+                ms = _time_ms(lambda: sc._conv3_q_run(*qargs, km.nvalid,
+                                                      km.plan()))
                 a1_ms = _time_ms(lambda: sc.conv3_columns(
                     f, km.col_idx, km.hit, w, g.mask, G, bias=b, relu=True,
-                    nvalid=km.nvalid))
+                    nvalid=km.nvalid, plan=km.plan()))
                 pro_ms = _time_ms(lambda: sc.quantize_feats(f, w, G))
                 hits = int(km.hit[g.mask].sum())
                 flops = 2.0 * hits * cin * cout * G
@@ -672,11 +719,15 @@ def run(steps: int, dev: str = "cuda"):
                                          mask=cond.mask[:cap].contiguous(),
                                          capacity=cap)
     t0 = time.time()
+    stats = plan_stats(pyr, dev, "t~T")
+    plan_stats(task.pyramid_full(x_init + 0.01 * torch.randn(
+        x_init.shape, generator=torch.Generator(device=dev).manual_seed(10),
+        device=dev)), dev, "t~0")
     res = {"B1": check_b1(pyr, grid),
            "C1": check_c1(pyr, {"cond": cond,
                                 "cond at the default capacity": cond_default,
                                 "uncond": pyr_u.levels[-1].geom}, knn),
-           "A1": check_a1(pyr, sparse_conv, dev),
+           "A1": check_a1(pyr, sparse_conv, dev, stats),
            "A4": check_a4(pyr, sparse_conv, dev)}
     # C2 at the sampling shapes, beside C1 (the sampling path keeps C1)
     g0 = pyr.levels[0].geom
@@ -1678,6 +1729,21 @@ def profile_step(step, label: str) -> None:
         log(f"    {us / 1e3:8.2f} ms  {name[:110]}")
 
 
+def log_ptxas(name: str, report: str) -> None:
+    """The ptxas lines of one library: each kernel's registers, shared
+    memory and spills under its (mangled) name, and any warning about
+    wgmma (serialized instructions lose the overlap)."""
+    entry = ""
+    for line in report.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {name} {entry}: {line.split('ptxas info    :')[-1]}")
+        elif "wgmma" in line or "arning" in line:
+            log(f"  ptxas {name}: {line}")
+
+
 def _sync(dev: str) -> None:
     import torch
     if dev == "cuda":
@@ -1714,9 +1780,7 @@ def main(argv=None) -> int:
     reports = native.build_all()
     log(f"build: {len(reports)} kernel libraries in {time.time() - t0:.1f} s")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        log_ptxas(name, rep)
 
     res, paths = run(args.steps)
     # kernel: (source, TPU kernel it replaces, the path its count is from)

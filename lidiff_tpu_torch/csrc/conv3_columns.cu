@@ -16,10 +16,13 @@
 // noisy early solver steps a voxel has about one neighbour, and the bound
 // is the bytes; on the coarse levels, at up to 384 input channels and with
 // more neighbours, it is the tensor-core rate.
-// Design: the 64x64 tile kernels of conv3_columns_tile.cuh (WMMA for bf16,
-// CUDA cores for float32), with the float32 and bf16 feats loaders below:
-// a bf16 row is staged as it is read, 8 channels per 16-byte load where
-// the widths are multiples of 8.
+// Design (conv3_columns_tile.cuh): bf16 runs the warpgroup-MMA kernel over
+// the map's tile plan: 64 plan rows x a whole output width per block, only
+// the taps some row of the tile hits, the feats rows gathered once per
+// block by cp.async into a swizzled ring that overlaps the products.
+// Float32 runs the CUDA-core 64x64 tile kernel. The loaders below: a bf16
+// row moves 8 channels per 16-byte copy (the wrapper pads C to a multiple
+// of 8).
 
 #include "conv3_columns_tile.cuh"
 
@@ -33,39 +36,35 @@ struct ALoad<float> {
 template <>
 struct ALoad<__nv_bfloat16> {
   static constexpr int kCh = 8;
-  __device__ static float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  __device__ static __nv_bfloat16 to_bf16(__nv_bfloat16 x) { return x; }
-  __device__ static void stage(uint4 v, __nv_bfloat16* dst) {
-    *reinterpret_cast<uint4*>(dst) = v;
-  }
 };
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16. feats [V, G*C] and w [27, C, Co] in
-// the input type, bias [Co] float32 or null, out_mask [V] bool, nvalid [1]
-// int32 on the device, out [V, G*Co] in the output type.
+// dtype codes: 0 float32, 1 bfloat16, of the input (feats and weights) and
+// of the output. float32: feats [V, G*C], w [27, C, Co], nvalid [1] int32 on
+// the device (order, tile_taps unused). bfloat16: feats [V, G*C] with C a
+// multiple of 8, w [27, Co, C] (K-major), order [V] and tile_taps
+// [ceil(V/64)] int32 from the map's tile plan (nvalid unused). bias [Co]
+// float32 or null, out_mask [V] bool, out [V, G*Co].
 extern "C" int conv3_columns(int tin, int tout, const void* feats,
                              const void* col_idx, const void* hit,
                              const void* w, const void* bias,
                              const void* out_mask, const void* nvalid,
+                             const void* order, const void* tile_taps,
                              void* out, int V, int C, int Co, int G, int relu,
                              void* stream) {
   using bf16 = __nv_bfloat16;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tin == 0 && tout == 0) {
-    launch<float, float, float>(feats, col_idx, hit, w, bias, out_mask,
-                                nvalid, out, V, C, Co, G, relu, s);
-  } else if (tin == 1 && tout == 1) {
-    launch<bf16, bf16, bf16>(feats, col_idx, hit, w, bias, out_mask, nvalid,
-                             out, V, C, Co, G, relu, s);
-  } else if (tin == 1 && tout == 0) {
-    launch<bf16, bf16, float>(feats, col_idx, hit, w, bias, out_mask, nvalid,
-                              out, V, C, Co, G, relu, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (tin == 0 && tout == 0)
+    return (int)launch_f32<float>(feats, col_idx, hit, w, bias, out_mask,
+                                  nvalid, out, V, C, Co, G, relu, s);
+  if (tin == 1 && tout == 1)
+    return (int)launch_bf16<bf16, bf16>(feats, col_idx, hit, w, bias,
+                                        out_mask, order, tile_taps, out, V,
+                                        C, Co, G, relu, s);
+  if (tin == 1 && tout == 0)
+    return (int)launch_bf16<bf16, float>(feats, col_idx, hit, w, bias,
+                                         out_mask, order, tile_taps, out, V,
+                                         C, Co, G, relu, s);
+  return (int)cudaErrorInvalidValue;
 }

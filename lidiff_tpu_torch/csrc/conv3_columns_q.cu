@@ -12,17 +12,18 @@
 // in float32; bias, ReLU and the mask are applied to the float32 sum, which
 // is cast to the output type once.
 //
-// What bounds it on an H100: as A1, the product of whole 64-row tiles: a
-// z-tap that one row of a tile hits costs the tile's whole product. The int8
-// payload buys what the gather reads: half the bytes of each gathered row.
-// The weights are not quantized (that would compute another function), so
-// the product stays on the bf16 tensor cores and not on the int8 ones.
-// Design: A1's 64x64 tile kernels (conv3_columns_tile.cuh) with the int8
-// feats loader below. The hit rows of each z-tap are read with 16-byte
-// loads (16 int8 channels; every width the models run, 32 to 384, is a
-// multiple of 16) and converted exactly to bf16 as they are staged into
-// shared memory, for A1's WMMA product. Float32 weights run A1's CUDA-core
-// kernel, exact float32 products.
+// What bounds it on an H100: as A1, the tensor-core rate on the coarse
+// levels and the bytes on the fine ones. The int8 payload buys what the
+// gather reads: half the bytes of each gathered row. The weights are not
+// quantized (that would compute another function), so the product stays on
+// the bf16 tensor cores and not on the int8 ones.
+// Design: A1's kernels (conv3_columns_tile.cuh) with the int8 loader below.
+// With bf16 weights, A1's warpgroup-MMA kernel over the tile plan: the
+// producer gathers each row's int8 channels, 16 per 16-byte cp.async (the
+// wrapper pads C to a multiple of 16), into a staging buffer, and the
+// consumers convert them exactly to bf16 into the swizzled tile that wgmma
+// reads. Float32
+// weights run A1's CUDA-core kernel, exact float32 products.
 
 #include "conv3_columns_tile.cuh"
 
@@ -42,45 +43,42 @@ template <>
 struct ALoad<int8_t> {
   static constexpr int kCh = 16;
   __device__ static float to_float(int8_t x) { return (float)x; }
-  __device__ static __nv_bfloat16 to_bf16(int8_t x) {
-    return __float2bfloat16_rn((float)x);
-  }
-  // 16 int8 channels (16 bytes) in, 16 bf16 (32 bytes) out
-  __device__ static void stage(uint4 v, __nv_bfloat16* dst) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(
-        int8x2_to_bf16x2(v.x, 0), int8x2_to_bf16x2(v.x, 1),
-        int8x2_to_bf16x2(v.y, 0), int8x2_to_bf16x2(v.y, 1));
-    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(
-        int8x2_to_bf16x2(v.z, 0), int8x2_to_bf16x2(v.z, 1),
-        int8x2_to_bf16x2(v.w, 0), int8x2_to_bf16x2(v.w, 1));
+  // 16 int8 channels (16 bytes) in; channels 0-7 and 8-15 as bf16 out
+  __device__ static void convert(uint4 v, uint4& lo, uint4& hi) {
+    lo = make_uint4(int8x2_to_bf16x2(v.x, 0), int8x2_to_bf16x2(v.x, 1),
+                    int8x2_to_bf16x2(v.y, 0), int8x2_to_bf16x2(v.y, 1));
+    hi = make_uint4(int8x2_to_bf16x2(v.z, 0), int8x2_to_bf16x2(v.z, 1),
+                    int8x2_to_bf16x2(v.w, 0), int8x2_to_bf16x2(v.w, 1));
   }
 };
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16 (of the weights, and of the output).
-// q [V, G*C] int8, w [27, C, Co] scale-folded in the weights' type, bias
-// [Co] float32 or null, out_mask [V] bool, nvalid [1] int32 on the device,
-// out [V, G*Co] in the output type.
+// q [V, G*C] int8. float32: w [27, C, Co], nvalid [1] int32 on the device.
+// bfloat16: C a multiple of 16, w [27, Co, C] (K-major), order [V] and
+// tile_taps [ceil(V/64)] int32 from the map's tile plan. Scale-folded
+// weights, bias [Co] float32 or null, out_mask [V] bool, out [V, G*Co] in
+// the output type.
 extern "C" int conv3_columns_q(int tw, int tout, const void* q,
                                const void* col_idx, const void* hit,
                                const void* w, const void* bias,
                                const void* out_mask, const void* nvalid,
+                               const void* order, const void* tile_taps,
                                void* out, int V, int C, int Co, int G,
                                int relu, void* stream) {
   using bf16 = __nv_bfloat16;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tw == 0 && tout == 0) {
-    launch<int8_t, float, float>(q, col_idx, hit, w, bias, out_mask, nvalid,
-                                 out, V, C, Co, G, relu, s);
-  } else if (tw == 1 && tout == 1) {
-    launch<int8_t, bf16, bf16>(q, col_idx, hit, w, bias, out_mask, nvalid,
-                               out, V, C, Co, G, relu, s);
-  } else if (tw == 1 && tout == 0) {
-    launch<int8_t, bf16, float>(q, col_idx, hit, w, bias, out_mask, nvalid,
-                                out, V, C, Co, G, relu, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (tw == 0 && tout == 0)
+    return (int)launch_f32<int8_t>(q, col_idx, hit, w, bias, out_mask,
+                                   nvalid, out, V, C, Co, G, relu, s);
+  if (tw == 1 && tout == 1)
+    return (int)launch_bf16<int8_t, bf16>(q, col_idx, hit, w, bias,
+                                          out_mask, order, tile_taps, out, V,
+                                          C, Co, G, relu, s);
+  if (tw == 1 && tout == 0)
+    return (int)launch_bf16<int8_t, float>(q, col_idx, hit, w, bias,
+                                           out_mask, order, tile_taps, out,
+                                           V, C, Co, G, relu, s);
+  return (int)cudaErrorInvalidValue;
 }

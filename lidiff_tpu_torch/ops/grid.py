@@ -7,13 +7,14 @@ original-resolution units at every level (multiples of the stride).
 
 The 27-tap column kernel map is kernel B1 (`csrc/kmap3_columns.cu`) for
 CUDA tensors and its plain PyTorch version, `kmap3_columns_plain`, for CPU
-tensors.
+tensors. Each map carries the tile plan of the column conv's bf16 kernel
+(`tile_plan`), built on first use and kept.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import torch
@@ -42,6 +43,56 @@ class VoxelGeom:
         return (self.num_raw - self.capacity).clamp(min=0)
 
 
+TILE_ROWS = 64   # rows of one tile of the column conv's bf16 kernel
+
+
+@dataclass
+class TilePlan:
+    """Which products the column conv's bf16 kernel computes: the rows in
+    plan order and, per 64 of them, the taps any of them hits. It changes
+    no result, only which products are skipped (a tap no row of a tile
+    hits adds zeros)."""
+    order: torch.Tensor      # [V] int32, a permutation of the rows
+    tile_taps: torch.Tensor  # [ceil(V / 64)] int32, bit k = tap k
+
+
+def hit_patterns(hit: torch.Tensor, mask: torch.Tensor | None = None):
+    """[V] int32: bit k set where the row hits tap k (0 for masked rows)."""
+    bits = torch.ones(27, dtype=torch.int32, device=hit.device) << \
+        torch.arange(27, dtype=torch.int32, device=hit.device)
+    pattern = (hit.to(torch.int32) * bits).sum(1, dtype=torch.int32)
+    if mask is not None:
+        pattern = torch.where(mask, pattern, 0)
+    return pattern
+
+
+def tile_taps(pattern: torch.Tensor):
+    """[ceil(V / 64)] int32: the OR of the hit patterns of each 64
+    consecutive rows (an OR tree of six steps)."""
+    V = pattern.shape[0]
+    T = -(-V // TILE_ROWS)
+    taps = torch.zeros(T * TILE_ROWS, dtype=torch.int32,
+                       device=pattern.device)
+    taps[:V] = pattern
+    taps = taps.view(T, TILE_ROWS)
+    while taps.shape[1] > 1:
+        taps = taps[:, 0::2] | taps[:, 1::2]
+    return taps[:, 0].contiguous()
+
+
+def tile_plan(hit: torch.Tensor, mask: torch.Tensor | None = None):
+    """The tile plan of a map: `order` is a stable sort of the rows by
+    their 27-bit hit pattern read as an integer (bit k = tap k, so tap 26
+    is the most significant), rows that hit nothing last; stability keeps
+    the key order, and so the locality of the gathers, within a pattern.
+    `tile_taps` is the OR of the patterns of each 64 consecutive rows of
+    `order`. Tensor ops on the map's device: one sort, one OR tree."""
+    pattern = hit_patterns(hit, mask)
+    key = torch.where(pattern == 0, 1 << 27, pattern)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    return TilePlan(order=order, tile_taps=tile_taps(pattern[order.long()]))
+
+
 @dataclass
 class ColumnKernelMap:
     """27-tap kernel map in column form. For each voxel and (dx, dy) column,
@@ -51,6 +102,15 @@ class ColumnKernelMap:
     col_idx: torch.Tensor  # [V, 9] int32
     hit: torch.Tensor      # [V, 27] bool
     nvalid: torch.Tensor   # [] int32, valid rows (they come first)
+    _plan: TilePlan | None = field(default=None, repr=False, compare=False)
+
+    def plan(self) -> TilePlan:
+        """The map's tile plan, built on first use and kept: every conv
+        over the map shares it. The hits of invalid rows are 0, so no mask
+        is needed."""
+        if self._plan is None:
+            self._plan = tile_plan(self.hit)
+        return self._plan
 
 
 @dataclass

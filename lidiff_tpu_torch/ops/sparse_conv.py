@@ -8,9 +8,11 @@ runs the classifier-free cond and uncond streams as G=2.
 The 27-tap column conv is kernel A1 (`csrc/conv3_columns.cu`) for CUDA
 tensors and its plain PyTorch version, `conv3_columns_plain`, for CPU
 tensors. Both accumulate all 27 taps in float32 and cast once, as the TPU
-kernel does (lidiff_tpu/ops/pallas_conv.py:800-832). The down and transpose
-convs are one dense GEMM each plus a gather or scatter, in plain PyTorch,
-and differentiate through autograd.
+kernel does (lidiff_tpu/ops/pallas_conv.py:800-832). In bf16 the kernel
+runs over the map's tile plan (`grid.tile_plan`): only the taps some row
+of a 64-row tile hits are computed, which changes no result. The down
+and transpose convs are one dense GEMM each plus a gather or scatter, in
+plain PyTorch, and differentiate through autograd.
 
 Training differentiates the column conv through `Conv3ColumnsFunction`
 (kernel A2, counterpart of conv_columns_pallas_ad,
@@ -37,7 +39,8 @@ import ctypes
 import torch
 
 from lidiff_tpu_torch.ops import native
-from lidiff_tpu_torch.ops.grid import ColumnKernelMap
+from lidiff_tpu_torch.ops.grid import (TILE_ROWS, ColumnKernelMap,
+                                       TilePlan, tile_plan)
 
 # Kernel A1 takes these (input, output) dtype pairs; the codes match
 # csrc/conv3_columns.cu.
@@ -51,7 +54,8 @@ _conv3_kernel = native.Kernel(
     [ctypes.c_int, ctypes.c_int,                       # dtype codes
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feats, col, hit
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # w, bias, mask
-     ctypes.c_void_p, ctypes.c_void_p,                   # nvalid, out
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # nvalid, plan
+     ctypes.c_void_p,                                    # out
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # V C Co G
      ctypes.c_int, ctypes.c_void_p])                     # relu, stream
 
@@ -60,7 +64,8 @@ _conv3_q_kernel = native.Kernel(
     [ctypes.c_int, ctypes.c_int,                       # dtype codes
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, col, hit
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # w', bias, mask
-     ctypes.c_void_p, ctypes.c_void_p,                   # nvalid, out
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # nvalid, plan
+     ctypes.c_void_p,                                    # out
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # V C Co G
      ctypes.c_int, ctypes.c_void_p])                     # relu, stream
 
@@ -120,12 +125,15 @@ def conv3_columns_plain(feats, col_idx, hit, weights, out_mask, groups,
 
 
 def conv3_columns(feats, col_idx, hit, weights, out_mask, groups, *,
-                  bias=None, relu=False, out_dtype=None, nvalid=None):
+                  bias=None, relu=False, out_dtype=None, nvalid=None,
+                  plan: TilePlan | None = None):
     """Kernel A1 on CUDA tensors, its plain version on CPU tensors.
 
-    `nvalid` ([] int32 on the device) lets the kernel write whole tiles of
-    rows at or past it as zeros without reading anything; those rows must
-    be masked out by `out_mask` (valid voxels come first).
+    `nvalid` ([] int32 on the device) lets the float32 kernel write whole
+    tiles of rows at or past it as zeros without reading anything; those
+    rows must be masked out by `out_mask` (valid voxels come first). `plan`
+    is the map's tile plan for the bf16 kernel (`ColumnKernelMap.plan()`);
+    without it the wrapper builds one from `hit` and `out_mask`.
 
     With autograd enabled and feats or weights requiring a gradient, the
     call goes through `Conv3ColumnsFunction`; the bias/ReLU epilogue is the
@@ -137,13 +145,47 @@ def conv3_columns(feats, col_idx, hit, weights, out_mask, groups, *,
             raise ValueError("conv3_columns: the bias/ReLU epilogue is "
                              "eval-only and has no gradient")
         return Conv3ColumnsFunction.apply(feats, weights, col_idx, hit,
-                                          out_mask, nvalid, groups, out_dtype)
+                                          out_mask, nvalid, groups, out_dtype,
+                                          plan)
     return _conv3_run(feats, col_idx, hit, weights, out_mask, groups, bias,
-                      relu, out_dtype, nvalid)
+                      relu, out_dtype, nvalid, plan)
+
+
+def _padded(feats, groups, mult):
+    """feats [V, G*C] with each group's channels zero-padded to a multiple
+    of `mult` (the kernel's 16-byte copies); itself where C is one."""
+    V, GC = feats.shape
+    C = GC // groups
+    Cp = -(-C // mult) * mult
+    if Cp == C:
+        return feats
+    out = feats.new_zeros(V, groups, Cp)
+    out[:, :, :C] = feats.reshape(V, groups, C)
+    return out.reshape(V, groups * Cp)
+
+
+def _k_major(weights, mult):
+    """weights [27, C, Co] as the bf16 kernel's B operand: [27, Co, Cp],
+    input channels contiguous and zero-padded to a multiple of `mult`."""
+    Kt, C, Co = weights.shape
+    Cp = -(-C // mult) * mult
+    wt = weights.new_zeros(Kt, Co, Cp)
+    wt[:, :, :C] = weights.transpose(1, 2)
+    return wt
+
+
+def _plan_args(plan, hit, out_mask):
+    plan = plan if plan is not None else tile_plan(hit, out_mask)
+    if plan.order.shape != (hit.shape[0],) \
+            or plan.tile_taps.shape != (-(-hit.shape[0] // TILE_ROWS),) \
+            or plan.order.dtype != torch.int32 \
+            or plan.tile_taps.dtype != torch.int32:
+        raise ValueError("conv3_columns: tile plan of another map")
+    return plan.order, plan.tile_taps
 
 
 def _conv3_run(feats, col_idx, hit, weights, out_mask, groups, bias, relu,
-               out_dtype, nvalid):
+               out_dtype, nvalid, plan=None):
     """One launch of kernel A1 (CUDA) or one plain conv (CPU); no autograd."""
     if feats.device.type == "cpu":
         return conv3_columns_plain(feats, col_idx, hit, weights, out_mask,
@@ -176,12 +218,19 @@ def _conv3_run(feats, col_idx, hit, weights, out_mask, groups, bias, relu,
     nvalid = nvalid.to(torch.int32)
     native.check_cuda("conv3_columns", feats, col_idx, hit, weights,
                       out_mask, nvalid, *([bias] if bias is not None else []))
+    order = tile_taps = None
+    if feats.dtype == torch.bfloat16:
+        order, tile_taps = _plan_args(plan, hit, out_mask)
+        native.check_cuda("conv3_columns", feats, order, tile_taps)
+        feats, weights = _padded(feats, G, 8), _k_major(weights, 8)
     out = torch.empty(V, G * Co, dtype=out_dtype, device=feats.device)
     _conv3_kernel(_DTYPE_CODE[feats.dtype], _DTYPE_CODE[out_dtype],
                   native.ptr(feats), native.ptr(col_idx), native.ptr(hit),
                   native.ptr(weights), native.ptr(bias), native.ptr(out_mask),
-                  native.ptr(nvalid), native.ptr(out), V, C, Co, G,
-                  int(relu), native.stream(feats.device))
+                  native.ptr(nvalid), native.ptr(order),
+                  native.ptr(tile_taps), native.ptr(out), V,
+                  feats.shape[1] // G, Co, G, int(relu),
+                  native.stream(feats.device))
     return out
 
 
@@ -215,16 +264,18 @@ def conv3_columns_q_plain(q, col_idx, hit, w_q, out_mask, groups, bias=None,
 
 
 def conv3_columns_q(feats, col_idx, hit, weights, out_mask, groups, *,
-                    bias=None, relu=False, out_dtype=None, nvalid=None):
+                    bias=None, relu=False, out_dtype=None, nvalid=None,
+                    plan: TilePlan | None = None):
     """The int8 eval conv: `quantize_feats`, then kernel A4 on CUDA tensors
-    or its plain version on CPU tensors. Eval-only: no autograd."""
+    or its plain version on CPU tensors. Eval-only: no autograd. `nvalid`
+    and `plan` as for `conv3_columns`."""
     q, w_q = quantize_feats(feats, weights, groups)
     return _conv3_q_run(q, col_idx, hit, w_q, out_mask, groups, bias, relu,
-                        out_dtype or feats.dtype, nvalid)
+                        out_dtype or feats.dtype, nvalid, plan)
 
 
 def _conv3_q_run(q, col_idx, hit, w_q, out_mask, groups, bias, relu,
-                 out_dtype, nvalid):
+                 out_dtype, nvalid, plan=None):
     """One launch of kernel A4 (CUDA) or one plain int8 conv (CPU)."""
     if q.device.type == "cpu":
         return conv3_columns_q_plain(q, col_idx, hit, w_q, out_mask, groups,
@@ -257,12 +308,19 @@ def _conv3_q_run(q, col_idx, hit, w_q, out_mask, groups, bias, relu,
     nvalid = nvalid.to(torch.int32)
     native.check_cuda("conv3_columns_q", q, col_idx, hit, w_q, out_mask,
                       nvalid, *([bias] if bias is not None else []))
+    order = tile_taps = None
+    if w_q.dtype == torch.bfloat16:
+        order, tile_taps = _plan_args(plan, hit, out_mask)
+        native.check_cuda("conv3_columns_q", q, order, tile_taps)
+        q, w_q = _padded(q, G, 16), _k_major(w_q, 16)
     out = torch.empty(V, G * Co, dtype=out_dtype, device=q.device)
     _conv3_q_kernel(_DTYPE_CODE[w_q.dtype], _DTYPE_CODE[out_dtype],
                     native.ptr(q), native.ptr(col_idx), native.ptr(hit),
                     native.ptr(w_q), native.ptr(bias), native.ptr(out_mask),
-                    native.ptr(nvalid), native.ptr(out), V, C, Co, G,
-                    int(relu), native.stream(q.device))
+                    native.ptr(nvalid), native.ptr(order),
+                    native.ptr(tile_taps), native.ptr(out), V,
+                    q.shape[1] // G, Co, G, int(relu),
+                    native.stream(q.device))
     return out
 
 
@@ -350,8 +408,9 @@ class Conv3ColumnsFunction(torch.autograd.Function):
     kernel A3, cast to the weights' dtype. The flipped conv is the exact
     gradient where the map is symmetric (voxel i is o's tap k exactly when
     o is i's tap 26 - k), which holds for a level's own 27-tap map with
-    `out_mask` the level's mask. CPU tensors take the plain versions of both
-    kernels under the same rule."""
+    `out_mask` the level's mask. The feats gradient runs over the forward's
+    tile plan: its rows and taps are the forward's. CPU tensors take the
+    plain versions of both kernels under the same rule."""
 
     # feats-gradient launches of kernel A1 made by `backward` (they also
     # count as launches of A1)
@@ -359,11 +418,13 @@ class Conv3ColumnsFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, weights, col_idx, hit, out_mask, nvalid, groups,
-                out_dtype):
+                out_dtype, plan):
+        if plan is None and feats.is_cuda and feats.dtype == torch.bfloat16:
+            plan = tile_plan(hit, out_mask)
         ctx.save_for_backward(feats, weights, col_idx, hit, out_mask, nvalid)
-        ctx.groups = groups
+        ctx.groups, ctx.plan = groups, plan
         return _conv3_run(feats, col_idx, hit, weights, out_mask, groups,
-                          None, False, out_dtype, nvalid)
+                          None, False, out_dtype, nvalid, plan)
 
     @staticmethod
     def backward(ctx, g):
@@ -375,13 +436,13 @@ class Conv3ColumnsFunction(torch.autograd.Function):
             w_rev = weights.flip(0).transpose(1, 2).contiguous()
             before = _conv3_kernel.launches
             df = _conv3_run(g, col_idx, hit, w_rev, out_mask, ctx.groups,
-                            None, False, feats.dtype, nvalid)
+                            None, False, feats.dtype, nvalid, ctx.plan)
             Conv3ColumnsFunction.launches += _conv3_kernel.launches - before
         if ctx.needs_input_grad[1]:
             dw = conv3_columns_dw(feats, g, col_idx, hit, out_mask,
                                   ctx.groups, nvalid=nvalid)
             dw = dw.to(weights.dtype)
-        return df, dw, None, None, None, None, None, None
+        return df, dw, None, None, None, None, None, None, None
 
 
 def sparse_conv_columns(feats, kmap: ColumnKernelMap, weights, out_mask, *,
@@ -394,7 +455,9 @@ def sparse_conv_columns(feats, kmap: ColumnKernelMap, weights, out_mask, *,
     `quant` selects the int8 eval conv (kernel A4) under the JAX package's
     gate (lidiff_tpu/ops/sparse_conv.py:139-167): only a conv with the eval
     epilogue (bias or ReLU: the folded BN) and Cin >= QUANT_MIN_CIN, and
-    never one under autograd. Every other conv is kernel A1."""
+    never one under autograd. Every other conv is kernel A1. On the card
+    both run over the map's tile plan, built by the first conv over the
+    map and shared by the rest (and by the feats gradient)."""
     cf = feats.to(compute_dtype).contiguous()
     cw = weights.to(compute_dtype).contiguous()
     run = conv3_columns
@@ -403,8 +466,10 @@ def sparse_conv_columns(feats, kmap: ColumnKernelMap, weights, out_mask, *,
             and not (torch.is_grad_enabled()
                      and (cf.requires_grad or cw.requires_grad)):
         run = conv3_columns_q
+    plan = kmap.plan() if cf.is_cuda and cw.dtype == torch.bfloat16 else None
     return run(cf, kmap.col_idx, kmap.hit, cw, out_mask, groups, bias=bias,
-               relu=relu, out_dtype=feats.dtype, nvalid=kmap.nvalid)
+               relu=relu, out_dtype=feats.dtype, nvalid=kmap.nvalid,
+               plan=plan)
 
 
 def sparse_conv_down(feats, parent_idx, tap, weights, out_mask, *,

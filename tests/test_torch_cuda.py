@@ -4,14 +4,17 @@ card. These skip without a CUDA device; run them on a machine with one:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 They cover what chip_smoke.py's main-path shapes do not: inputs smaller
-than one tile, partial tiles past nvalid, widths that are not multiples of
-8 (the scalar-load path of A1's tensor-core variant), no bias, no ReLU,
-and the float32 path. Tolerances as in chip_smoke.py: B1 and C1 exact;
-A1 float32 within 1e-5 of max|ref| (sum order), bf16 within one bf16 ulp
-plus 1e-4 of max|ref|. The bf16 down and transpose convs (plain PyTorch on
-both sides, atomic scatter order on the card) are held to the bound stated
-in `sparse_conv_down`: n * 2^-7 * A per parent of n children, A the sum of
-|feat| * |weight| over its children and channels.
+than one tile, partial tiles past nvalid, tiles of the tile plan with no
+active tap, input widths that are not multiples of 8 or 16 (zero-padded by
+the wrappers) and K chunks with a tail, output widths that are not
+multiples of 8 and Co = 384 (two blocks of 192 across the width), no
+bias, no ReLU, and the float32 path. Tolerances as in chip_smoke.py: B1
+and C1 exact; A1 float32 within 1e-5 of max|ref| (sum order), bf16
+within one bf16 ulp plus 1e-4 of max|ref|. The bf16 down and transpose
+convs (plain PyTorch on both sides, atomic scatter order on the card)
+are held to the bound stated in `sparse_conv_down`: n * 2^-7 * A per
+parent of n children, A the sum of |feat| * |weight| over its children
+and channels.
 
 A3 (the weight gradient) is held to its plain version on the same bf16 or
 float32 operands within 1e-4 of max|ref| in float32 and 5e-4 in bf16: both
@@ -20,7 +23,7 @@ changes from run to run, and in bf16 on the tensor cores, which truncate
 where they add to the float32 accumulator.
 A4 (the int8 eval conv) is held to its plain version on the same int8
 feats and folded weights as A1 is to its own, on widths that are and are
-not multiples of 16 (the 16-byte int8 loads and the scalar path).
+not multiples of 16 (the wrapper pads them for the 16-byte int8 copies).
 The differentiable conv (A2) is held to the same backward rule on the CPU:
 its feats gradient like A1 (float32 1e-5 of max|ref|; bf16 one bf16 ulp
 plus 1e-4 of max|ref|), its weight gradient like A3 plus, in bf16, the one
@@ -179,6 +182,77 @@ def test_conv3_columns_q_rejects_bad_input(dev):
     with pytest.raises(ValueError):      # tensors on two devices
         run(q, km.col_idx.cpu(), km.hit, w, g.mask, 1, None, False,
             torch.float32, None)
+
+
+def _check_bf16(got, ref, out_dtype):
+    scale = float(ref.abs().max())
+    ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= ulp * ref.float().abs() + 1e-4 * scale).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["A1", "A4"])
+@pytest.mark.parametrize("cin,cout,G", [(5, 384, 1), (40, 384, 2),
+                                        (64, 384, 1), (40, 8, 2),
+                                        (136, 96, 1), (72, 3, 2)])
+def test_conv3_columns_tile_plan(dev, out_dtype, kernel, cin, cout, G):
+    """The bf16 kernel over the map's tile plan: Co = 384 splits into two
+    192-wide blocks, C = 5 and 40 are padded and end in a K tail, Co = 3 is
+    masked, the plan ends in tiles with no active tap (padding rows), and
+    the plan passed by the map equals the one the wrapper builds."""
+    pyr = _pyramid(dev, 300, [1024, 512], seed=cin + cout)
+    lvl = pyr.levels[0]
+    g, km = lvl.geom, lvl.kmap3
+    plan = km.plan()
+    assert int(km.nvalid) < g.capacity
+    assert bool((plan.tile_taps == 0).any())     # tiles with no active tap
+    gen = torch.Generator(device=dev).manual_seed(cin * cout + G)
+    f = torch.randn(g.capacity, G * cin, generator=gen, device=dev)
+    f = (f * g.mask[:, None]).to(torch.bfloat16)
+    w = (torch.randn(27, cin, cout, generator=gen, device=dev)
+         / math.sqrt(27 * cin)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    if kernel == "A1":
+        args = (f, km.col_idx, km.hit, w, g.mask, G)
+        kw = dict(bias=bias, relu=True, out_dtype=out_dtype,
+                  nvalid=km.nvalid)
+        got = sparse_conv.conv3_columns(*args, plan=plan, **kw)
+        again = sparse_conv.conv3_columns(*args, **kw)
+        ref = sparse_conv.conv3_columns_plain(*args, bias=bias, relu=True,
+                                              out_dtype=out_dtype)
+    else:
+        q, w_q = sparse_conv.quantize_feats(f, w, G)
+        args = (q, km.col_idx, km.hit, w_q, g.mask, G, bias, True, out_dtype)
+        got = sparse_conv._conv3_q_run(*args, km.nvalid, plan)
+        again = sparse_conv._conv3_q_run(*args, km.nvalid)
+        ref = sparse_conv.conv3_columns_q_plain(*args)
+    assert got.dtype == out_dtype and got.shape == (g.capacity, G * cout)
+    assert torch.equal(got, again)               # no atomics: deterministic
+    _check_bf16(got, ref, out_dtype)
+
+
+@pytest.mark.parametrize("cin,cout,G", [(40, 384, 1), (5, 24, 2),
+                                        (384, 64, 1)])
+def test_conv3_feats_gradient_runs_over_the_saved_plan(dev, cin, cout, G):
+    """A2's feats gradient through `sparse_conv_columns`, whose forward
+    saves the map's plan for the backward: equal to the plain conv of the
+    masked cotangent with flipped, transposed weights."""
+    g, km, f, w, cot = _grad_inputs(dev, torch.bfloat16, cin, cout, G)
+    ff = f.clone().requires_grad_(True)
+    before = sparse_conv.Conv3ColumnsFunction.launches
+    out = sparse_conv.sparse_conv_columns(
+        ff, km, w, g.mask, groups=G, compute_dtype=torch.bfloat16)
+    assert km._plan is not None                  # built by the forward
+    df, = torch.autograd.grad(out, ff, cot.to(out.dtype))
+    assert sparse_conv.Conv3ColumnsFunction.launches == before + 1
+    cot_m = torch.where(g.mask[:, None], cot, 0.0).to(torch.bfloat16)
+    w_rev = w.flip(0).transpose(1, 2).contiguous()
+    ref = sparse_conv.conv3_columns_plain(cot_m, km.col_idx, km.hit, w_rev,
+                                          g.mask, G)
+    assert df.dtype == torch.bfloat16
+    _check_bf16(df, ref, torch.bfloat16)
 
 
 BF16_ULP = 2.0 ** -7
