@@ -7,18 +7,22 @@ From the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a):
   1. builds the hand-written kernels from `lidiff_tpu_torch/csrc/` with nvcc;
   2. holds each kernel against its plain PyTorch version on the card at the
-     shapes of the sampling path (B1 and C1 exactly, A1 within the stated
-     tolerances), and times both;
+     shapes of the sampling path (B1 and C1 exactly, C1 at all five levels
+     against both conditioning banks over each bank's index, with the
+     index's build time and the rows examined per query; A1 within the
+     stated tolerances), and times both;
   3. runs one classifier-free completion through `DiffusionTask.sample` at
      full width (cr=1, out_dim 96, bf16) on a 180k-point synthetic ring
      scan, G=2 fused cond/uncond, w=6, S steps of the 1000-step linear
-     schedule, counting each kernel's launches in that run;
+     schedule, counting each kernel's launches in that run (C1: 10 per
+     step, 5 of them the uncond bank's scan, and 2 index builds);
   4. checks the output (finite, shape, zero capacity overflow) and a small
      f32 denoise on the card against the same weights on the CPU;
   5. holds the conv's backward kernels against their plain versions at the
-     same widths (A3, the weight gradient, and A2, the feats gradient
-     through the autograd Function), and a small f32 training step on the
-     card against the CPU (loss and every parameter's gradient);
+     same widths (A3, the weight gradient, over the map's tile plan in
+     bf16, and A2, the feats gradient through the autograd Function), and a
+     small f32 training step on the card against the CPU (loss and every
+     parameter's gradient);
   6. takes 2 + 3 optimizer steps through `Trainer.train_step` at full width
      on the same 180k-point scan (bf16 compute, float32 activations, batch
      1), split into forward, backward and optimizer time, with launch
@@ -86,11 +90,12 @@ A1_TIMED = (384, 256, 3, 2)  # (Cin, Cout, level, G): the kernels line's A1
 A1_BF16_RTOL = 2.0 ** -7    # one bf16 ulp, relative
 A1_BF16_ATOL = 1e-4         # x max|ref|: float32 sums taken in other orders
 A1_F32_TOL = 1e-5           # x max|ref|
-# A3 sums float32 products over up to 180k rows and 2 groups, across blocks
-# with atomics in an order that changes from run to run; the plain version
-# sums inside one float32 GEMM. x max|ref|. In bf16 the products are the
-# same, but the tensor cores truncate where they add to the float32
-# accumulator, which biases a long sum: 8.7e-5 seen at 2 x 158k rows.
+# A3 sums float32 products over up to 180k rows and 2 groups: in float32
+# across blocks with atomics in an order that changes from run to run, in
+# bf16 per chunk of the tile plan and then the chunks in a fixed order; the
+# plain version sums inside one float32 GEMM. x max|ref|. In bf16 the
+# products are the same, but the tensor cores truncate where they add to the
+# float32 accumulator, which biases a long sum: 8.7e-5 seen at 2 x 158k rows.
 A3_F32_TOL = 1e-4
 A3_BF16_TOL = 5e-4
 A3_TIMED = (384, 256, 3, 1)  # (C, Co, level, G): the kernels line's A2, A3
@@ -127,6 +132,36 @@ NAMES = {"C2w": "nn_window_bound"}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Count:
+    """A counter kept as an attribute of `obj`, read and reset as a kernel
+    wrapper's `launches` is."""
+
+    def __init__(self, obj, attr: str):
+        self.obj, self.attr = obj, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.obj, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.obj, self.attr, value)
+
+
+def kernel_table() -> dict:
+    """The launch counters of every kernel the main paths run, by name:
+    each has a `launches` that its wrapper raises at a launch."""
+    from lidiff_tpu_torch.ops import grid, knn, sparse_conv
+    return {"A1": sparse_conv._conv3_kernel,
+            "A4": sparse_conv._conv3_q_kernel,
+            "A2": sparse_conv.Conv3ColumnsFunction,
+            "A3": sparse_conv._conv3_dw_kernel,
+            "B1": grid._kmap3_kernel, "C1": knn._nn_kernel,
+            "C1 scan": Count(knn._nn_kernel, "scans"),
+            "C1 index": Count(knn.NNIndex, "builds"),
+            "C2": knn._pruned_kernel, "C2w": knn._bound_kernel}
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -202,31 +237,66 @@ def check_b1(pyr, grid):
 
 
 def check_c1(pyr, banks, knn):
-    """C1 against its plain version for the L0 queries and each bank:
-    indices equal on valid queries. Returns the main path's cond bank."""
+    """C1 against its plain version at every level's queries and each bank,
+    over the bank's index as the main path builds it: indices equal on
+    valid queries, 0 on invalid ones. Times the index build and each
+    level; counts the rows examined per valid query. Returns the main
+    path's L0 x cond bank result."""
     import torch
-    g = pyr.levels[0].geom
     out = {}
     for name, bank in banks.items():
-        idx = knn.nn_match(g.coords, bank.coords, bank.mask, n_batch=1)
-        ref = knn.nn_match_plain(g.coords, bank.coords, bank.mask)
-        if not torch.equal(idx[g.mask], ref[g.mask]):
-            bad = int((idx != ref)[g.mask].sum())
-            raise AssertionError(f"C1 differs from its plain version on "
-                                 f"{bad} valid queries ({name} bank)")
-        ms = _time_ms(lambda: knn.nn_match(g.coords, bank.coords, bank.mask,
-                                           n_batch=1))
-        plain_ms = _time_ms(lambda: knn.nn_match_plain(
-            g.coords, bank.coords, bank.mask), 3)
-        nq, nr = int(g.mask.sum()), int(bank.mask.sum())
-        # per (query, valid ref) pair: 3 multiply-adds, a subtract, a compare
-        bound, by = _bound_ms(nq * nr * 8, PEAK_F32,
-                              g.capacity * 20 + bank.capacity * 17)
-        log(f"C1 nn_match: {g.capacity} queries x {bank.capacity}-row "
-            f"{name} bank ({nr} valid): exact; {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-        out[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=by, library_ms=None)
+        index = knn.build_nn_index(bank.coords, bank.mask, 1)
+        build_ms = _time_ms(lambda: knn.build_nn_index(bank.coords,
+                                                       bank.mask, 1), 3)
+        nr = int(bank.mask.sum())
+        log(f"C1 index of the {name} bank: {nr} valid of {bank.capacity} "
+            f"rows, cell {index.cell}, grid {index.dims}"
+            f"{' (one cell: a scan)' if index.scan else ''}, built in "
+            f"{build_ms:.4f} ms")
+        for li, lvl in enumerate(pyr.levels):
+            g = lvl.geom
+            idx, pairs = knn.nn_match(g.coords, bank.coords, bank.mask, 1,
+                                      g.mask, index, pairs=True)
+            ref = knn.nn_match_plain(g.coords, bank.coords, bank.mask,
+                                     g.mask)
+            if not torch.equal(idx, ref):
+                bad = int((idx != ref)[g.mask].sum())
+                raise AssertionError(
+                    f"C1 differs from its plain version on {bad} valid "
+                    f"queries (L{li} x {name} bank)")
+            ms = _time_ms(lambda: knn.nn_match(g.coords, bank.coords,
+                                               bank.mask, 1, g.mask, index))
+            nq = int(g.mask.sum())
+            examined = float(pairs[g.mask].double().sum())
+            # The bound is the bytes: the queries and their mask, the index
+            # and the output, each moved once; no count of operations
+            # follows from the inputs alone. For comparison, at 8
+            # operations per (query, ref) pair (3 multiply-adds, a
+            # subtract, a compare): the pairs this search examined (which
+            # depend on its design) and those of a full scan.
+            nbytes = g.capacity * 21 + nr * 16 + \
+                index.cell_start.shape[0] * 4
+            bound, by = _bound_ms(0, PEAK_F32, nbytes)
+            scan_bound, _ = _bound_ms(nq * nr * 8, PEAK_F32, 0)
+            examined_bound, _ = _bound_ms(examined * 8, PEAK_F32, 0)
+            plain_ms = (_time_ms(lambda: knn.nn_match_plain(
+                g.coords, bank.coords, bank.mask, g.mask), 3)
+                if li == 0 else None)
+            log(f"C1 nn_match L{li}: {g.capacity} queries ({nq} valid) x "
+                f"{name} bank: exact; {ms:.4f} ms, "
+                f"{examined / max(nq, 1):.1f} rows examined per valid "
+                f"query; bound {bound:.4f} ms ({by}); the examined pairs' "
+                f"operations {examined_bound:.4f} ms, a full scan's "
+                f"{scan_bound:.4f} ms"
+                + (f"; plain {plain_ms:.4f} ms" if plain_ms else ""))
+            if li == 0:
+                out[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 library_ms=None,
+                                 scan_bound_ms=scan_bound,
+                                 examined_bound_ms=examined_bound,
+                                 index_ms=build_ms,
+                                 pairs_per_query=examined / max(nq, 1))
     return out["cond"]
 
 
@@ -473,7 +543,10 @@ def check_backward(pyr, sc, dev):
                 f, cot, w = _conv_inputs(lvl, cin, cout, G, dt, gen, dev)
                 # --- A3
                 a3 = (f, cot.to(dt), km.col_idx, km.hit, g.mask, G)
-                dw = sc.conv3_columns_dw(*a3, nvalid=km.nvalid)
+                # bf16 runs over the map's plan, as the training path does
+                kw3 = dict(nvalid=km.nvalid,
+                           plan=km.plan() if dt == torch.bfloat16 else None)
+                dw = sc.conv3_columns_dw(*a3, **kw3)
                 dw_ref = sc.conv3_columns_dw_plain(*a3)
                 scale3 = float(dw_ref.abs().max())
                 err3 = float((dw - dw_ref).abs().max())
@@ -512,14 +585,14 @@ def check_backward(pyr, sc, dev):
                     f"{float(err.max()):.3g} "
                     f"({float(err.max()) / max(scale2, 1e-30):.2e})")
                 if dt == torch.bfloat16 and G == 1:
-                    cases.append((cin, cout, li, a3, a2, out, ff, cot, km, g,
-                                  err3, float(err.max())))
-    for cin, cout, li, a3, a2, out, ff, cot, km, g, err3, err2 in cases:
+                    cases.append((cin, cout, li, a3, kw3, a2, out, ff, cot,
+                                  km, g, err3, float(err.max())))
+    for cin, cout, li, a3, kw3, a2, out, ff, cot, km, g, err3, err2 in cases:
         V = g.capacity
         hits = int(km.hit[g.mask].sum())
         flops = 2.0 * hits * cin * cout
         kmap_bytes = V * 9 * 4 + V * 27 + V
-        ms3 = _time_ms(lambda: sc.conv3_columns_dw(*a3, nvalid=km.nvalid))
+        ms3 = _time_ms(lambda: sc.conv3_columns_dw(*a3, **kw3))
         b3, by3 = _bound_ms(flops, PEAK_BF16,
                             V * cin * 2 + V * cout * 2 + kmap_bytes
                             + 27 * cin * cout * 4)
@@ -642,6 +715,12 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
     _sync(dev)
     total_s = time.time() - t0
     launches = {n: k.launches for n, k in kernels.items()}
+    # per guided step one match per level and bank, the uncond bank's a
+    # scan; one index per bank and completion
+    want = {"C1": 10 * steps, "C1 scan": 5 * steps, "C1 index": 2}
+    if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
+        raise AssertionError(f"completion launches {launches}, expected "
+                             f"{want}")
     t0 = time.time()
     task.encode_banks(part)
     _sync(dev)
@@ -747,12 +826,7 @@ def run(steps: int, dev: str = "cuda"):
     del pyr, pyr_c, pyr_u, g0
 
     # ---- 3. the main path: one completion ----
-    kernels = {"A1": sparse_conv._conv3_kernel,
-               "A4": sparse_conv._conv3_q_kernel,
-               "A2": sparse_conv.Conv3ColumnsFunction,
-               "A3": sparse_conv._conv3_dw_kernel,
-               "B1": grid._kmap3_kernel, "C1": knn._nn_kernel,
-               "C2": knn._pruned_kernel, "C2w": knn._bound_kernel}
+    kernels = kernel_table()
     solver = make_dpm_solver("linear", 1000, steps, 3.5e-5, 0.007, device=dev)
     # a first completion warms the allocator and the library kernels'
     # first-use set-up; the second is the one timed and counted
@@ -768,6 +842,12 @@ def run(steps: int, dev: str = "cuda"):
     _sync(dev)
     total_s = time.time() - t0
     launches = {n: k.launches for n, k in kernels.items()}
+    # per guided step one match per level and bank, the uncond bank's a
+    # scan; one index per bank and completion
+    want = {"C1": 10 * steps, "C1 scan": 5 * steps, "C1 index": 2}
+    if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
+        raise AssertionError(f"completion launches {launches}, expected "
+                             f"{want}")
     t0 = time.time()
     task.encode_banks(part)
     _sync(dev)
@@ -944,7 +1024,8 @@ def run_training(cfg, kernels, x_init, part, dev):
         task, cfg, {"pcd_full": x_init, "pcd_part": part},
         torch.Generator(device=dev).manual_seed(3), kernels, dev, "training",
         "loss", {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
-                 "A1": 2 * CONVS_PER_STEP - 2}, describe)
+                 "A1": 2 * CONVS_PER_STEP - 2, "C1": 5, "C1 index": 1},
+        describe)
     if any(overflow):
         raise AssertionError("capacity overflow on the training input")
     return launches

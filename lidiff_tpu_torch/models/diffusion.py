@@ -186,13 +186,16 @@ class DiffusionTask:
     @eval_no_grad
     def encode_banks(self, part):
         """Conditioning banks of one completion, computed once:
-        (feats_c, geom_c, feats_u, geom_u)."""
+        (feats_c, geom_c, feats_u, geom_u); each geom keeps its 1-NN index,
+        built here, for every solver step."""
         pyr_c = self.pyramid_part(part)
         pyr_u = self.pyramid_part_tiny(torch.zeros_like(part))
         feats_c = self.model.encode_partial(pyr_c)
         feats_u = self.model.encode_partial(pyr_u)
-        return (feats_c, pyr_c.levels[-1].geom,
-                feats_u, pyr_u.levels[-1].geom)
+        geom_c, geom_u = pyr_c.levels[-1].geom, pyr_u.levels[-1].geom
+        for g in (geom_c, geom_u):
+            g.nn_index(part.shape[0])
+        return feats_c, geom_c, feats_u, geom_u
 
     @eval_no_grad
     def denoise_pair(self, points, feats_c, geom_c, feats_u, geom_u, t: int,

@@ -153,12 +153,13 @@ class MinkUNetDiff(nn.Module):
         temp = timestep_embedding(t, self.out_dim)
 
         # one 1-NN match per level and bank, shared by the down and up
-        # stages on that level
+        # stages on that level; each bank's index is built once and kept
         nb = pyr.point2voxel.shape[0]
 
         def level_match(l):
             ms = [match_features(l.geom.coords, l.geom.mask, pg.coords,
-                                 pg.mask, pf, n_batch=nb, compute_dtype=cd)
+                                 pg.mask, pf, n_batch=nb, compute_dtype=cd,
+                                 index=pg.nn_index(nb))
                   for pf, pg in banks]
             return ms[0] if G == 1 else torch.stack(ms, dim=1)
         match = [level_match(l) for l in lv]

@@ -8,7 +8,8 @@ original-resolution units at every level (multiples of the stride).
 The 27-tap column kernel map is kernel B1 (`csrc/kmap3_columns.cu`) for
 CUDA tensors and its plain PyTorch version, `kmap3_columns_plain`, for CPU
 tensors. Each map carries the tile plan of the column conv's bf16 kernel
-(`tile_plan`), built on first use and kept.
+(`tile_plan`), and a level used as a conditioning bank its 1-NN index
+(`VoxelGeom.nn_index`), each built on first use and kept.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from lidiff_tpu_torch.ops import keys as K
 from lidiff_tpu_torch.ops import native
+from lidiff_tpu_torch.ops.knn import NNIndex, build_nn_index
 
 
 @dataclass
@@ -32,6 +34,7 @@ class VoxelGeom:
     num: torch.Tensor      # [] int32, valid voxels (<= capacity)
     num_raw: torch.Tensor  # [] int32, unique voxels before the capacity clip
     stride: int = 1
+    _nn: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def capacity(self) -> int:
@@ -41,6 +44,16 @@ class VoxelGeom:
     def overflow(self) -> torch.Tensor:
         """Voxels dropped by the capacity clip (the highest keys go)."""
         return (self.num_raw - self.capacity).clamp(min=0)
+
+    def nn_index(self, n_batch: int = 0) -> NNIndex:
+        """The level as a 1-NN bank: its kernel C1 index
+        (`knn.build_nn_index`), built on first use and kept, one per batch
+        mode (n_batch == 1 or not)."""
+        batched = n_batch != 1
+        if batched not in self._nn:
+            self._nn[batched] = build_nn_index(self.coords, self.mask,
+                                               n_batch)
+        return self._nn[batched]
 
 
 TILE_ROWS = 64   # rows of one tile of the column conv's bf16 kernel
@@ -54,6 +67,9 @@ class TilePlan:
     hits adds zeros)."""
     order: torch.Tensor      # [V] int32, a permutation of the rows
     tile_taps: torch.Tensor  # [ceil(V / 64)] int32, bit k = tap k
+    # kernel A3's state over the plan, made on first use
+    # (`sparse_conv.DwPlan`)
+    dw: object = field(default=None, repr=False, compare=False)
 
 
 def hit_patterns(hit: torch.Tensor, mask: torch.Tensor | None = None):

@@ -1,11 +1,21 @@
 """Batched 1-NN coordinate matching (counterpart of lidiff_tpu/ops/knn.py).
 
-For every query voxel, the index of the nearest valid reference voxel of
-the same batch item, ranked by |r|^2 - 2 q.r (the per-query |q|^2 never
+For every valid query voxel, the index of the nearest valid reference voxel
+of the same batch item, ranked by |r|^2 - 2 q.r (the per-query |q|^2 never
 changes an argmin), ties to the first index; a batch item with no valid
 reference gives index 0, as the XLA path's argmin over all-penalized rows
-does. Kernel C1 (`csrc/nn_match.cu`) computes it for CUDA tensors, its
-plain PyTorch version `nn_match_plain` for CPU tensors.
+does. Invalid queries (`q_mask` False) get index 0; only valid queries
+carry the JAX function's index. `nn_match_plain` is the function's
+definition: a scan of every reference row in float64.
+
+Kernel C1 (`csrc/nn_match.cu`) computes it for CUDA tensors over an index
+of the reference side (`NNIndex`, `build_nn_index`): the valid rows sorted
+into a uniform grid of cubic cells per batch item. Each query visits the
+cells in shells of growing Chebyshev radius around its own cell and stops
+once no unvisited cell can hold a row at a distance less than or equal to
+the best one. `nn_grid_plain` is the same search in tensor code. A bank
+keeps its index on its `VoxelGeom` (`VoxelGeom.nn_index`), so a
+completion builds it once for all its solver steps and levels.
 
 `nn_match_pruned` computes the same function for large, lex-sorted inputs
 (the grid chamfer's 1.08M x 360k matches): each tile of QTILE queries scans
@@ -21,6 +31,8 @@ sorted input or not (unsorted input only prunes less).
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -36,8 +48,11 @@ NO_BOUND = 2 ** 31 - 1   # window bound of a query with no valid ref in it
 
 _nn_kernel = native.Kernel(
     "nn_match", "nn_match",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+_nn_kernel.scans = 0  # of its launches, those over a one-cell-per-item index
 _bound_kernel = native.Kernel(
     "nn_match_pruned", "nn_window_bound",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -50,9 +65,141 @@ _pruned_kernel = native.Kernel(
      ctypes.c_void_p, ctypes.c_void_p])
 
 
-def nn_match_plain(q_coords, r_coords, r_mask, block: int = 8192):
-    """Plain PyTorch version of kernel C1. Distances are formed in float64,
-    which holds them exactly (|c| <= 2047 keeps them below 2^27)."""
+@dataclass
+class NNIndex:
+    """The valid reference rows in a uniform grid of cubic cells, per batch
+    item: cell (x, y, z) of item b holds the rows with coordinates in
+    [lo + (x, y, z) * cell, lo + (x, y, z + 1) * cell), and its rows are
+    pts[cell_start[i] : cell_start[i + 1]], i = ((b * nx + x) * ny + y) * nz
+    + z, in ascending row order. `items` is 1 where the batch ids are not
+    compared (n_batch == 1)."""
+    pts: torch.Tensor         # [n, 4] int32: x, y, z, row in the bank
+    cell_start: torch.Tensor  # [items * nx * ny * nz + 1] int32
+    lo: tuple                 # (x, y, z) of cell (0, 0, 0)'s corner
+    cell: int                 # cell edge, in coordinate units
+    dims: tuple               # (nx, ny, nz)
+    items: int
+    batched: bool
+
+    builds = 0                # indexes built (all instances)
+
+    @property
+    def scan(self) -> bool:
+        """One cell per item: the search is a plain scan of the item's
+        rows."""
+        return self.dims == (1, 1, 1)
+
+
+def build_nn_index(r_coords, r_mask, n_batch: int = 0) -> NNIndex:
+    """The bank's `NNIndex`, in tensor ops on its device: two host reads
+    (the valid rows' count, then their bounding box and batch ids), one
+    stable sort by cell, one search for the cells' first rows.
+
+    The cell edge makes the bounding box hold about one valid row per cell
+    (per item), so the cells number about the rows. A bank whose items
+    share one voxel (the uncond bank) comes out as one cell per item, and
+    its search is a scan of its rows."""
+    NNIndex.builds += 1
+    dev = r_coords.device
+    batched = n_batch != 1
+    rows = torch.nonzero(r_mask).squeeze(1)
+    c = r_coords[rows].long()
+    n = rows.shape[0]
+    if n == 0:
+        return NNIndex(pts=torch.zeros(0, 4, dtype=torch.int32, device=dev),
+                       cell_start=torch.zeros(2, dtype=torch.int32,
+                                              device=dev),
+                       lo=(0, 0, 0), cell=1, dims=(1, 1, 1), items=1,
+                       batched=batched)
+    b = c[:, 0] if batched else torch.zeros_like(c[:, 0])
+    lo_t, hi_t = c[:, 1:].amin(0), c[:, 1:].amax(0)
+    stats = torch.cat([lo_t, hi_t, b.amin()[None], b.amax()[None]]).tolist()
+    lo, hi, b_lo, items = stats[:3], stats[3:6], stats[6], stats[7] + 1
+    if b_lo < 0:
+        raise ValueError("build_nn_index: negative batch id")
+    ext = [h - l + 1 for l, h in zip(lo, hi)]
+    vol = ext[0] * ext[1] * ext[2] * items
+    cell = max(1, math.ceil((vol / n) ** (1 / 3)))
+    dims = tuple(-(-e // cell) for e in ext)
+    cxyz = torch.div(c[:, 1:] - lo_t, cell, rounding_mode="floor")
+    cid = ((b * dims[0] + cxyz[:, 0]) * dims[1] + cxyz[:, 1]) * dims[2] \
+        + cxyz[:, 2]
+    ncells = items * dims[0] * dims[1] * dims[2]
+    cid, order = torch.sort(cid, stable=True)
+    pts = torch.cat([c[order, 1:], rows[order, None]], 1).to(torch.int32)
+    # cell i's rows start at the number of rows in cells below i
+    start = torch.searchsorted(cid, torch.arange(ncells + 1, device=dev)) \
+        .to(torch.int32)
+    return NNIndex(pts=pts.contiguous(), cell_start=start, lo=tuple(lo),
+                   cell=cell, dims=dims, items=items, batched=batched)
+
+
+def nn_grid_plain(q_coords, q_mask, index: NNIndex, block: int = 4096):
+    """Plain version of kernel C1's search over `index`, in tensor code:
+    the same query cells, shells, lexicographic (distance, row) minimum and
+    stop rule, on any device; the rows of shell r are those whose cell is r
+    away from the query's in the Chebyshev norm. Memory goes as `block`
+    queries x the index's rows. Returns (idx [Vq] int32, pairs [Vq] int32:
+    the rows each query examined)."""
+    dev = q_coords.device
+    Vq = q_coords.shape[0]
+    out = torch.zeros(Vq, dtype=torch.int32, device=dev)
+    pairs = torch.zeros(Vq, dtype=torch.int32, device=dev)
+    dims = torch.tensor(index.dims, device=dev)
+    lo = torch.tensor(index.lo, device=dev)
+    nxyz = index.dims[0] * index.dims[1] * index.dims[2]
+    start = index.cell_start.long()
+    pts = index.pts.long()
+    n = pts.shape[0]
+    # each row's cell and batch item
+    p_cell = torch.div(pts[:, :3] - lo, index.cell, rounding_mode="floor")
+    p_item = (torch.searchsorted(start, torch.arange(n, device=dev),
+                                 right=True) - 1) // nxyz
+    q = q_coords.long()
+    b = q[:, 0] if index.batched else torch.zeros_like(q[:, 0])
+    live = b.ge(0) & b.lt(index.items)
+    if q_mask is not None:
+        live &= q_mask
+    bc = b.clamp(0, index.items - 1) * nxyz
+    live &= start[bc + nxyz] > start[bc]
+    for s in range(0, Vq, block):
+        qi = torch.nonzero(live[s:s + block]).squeeze(1) + s
+        qq = q[qi, 1:]
+        qc = torch.div(qq - lo, index.cell, rounding_mode="floor")
+        r = torch.maximum(-qc, qc - (dims - 1)).clamp(min=0).amax(1)
+        cheb = (p_cell[None] - qc[:, None]).abs().amax(2)          # [s, n]
+        mine = p_item[None] == b[qi, None]
+        d = ((pts[None, :, :3] - qq[:, None]) ** 2).sum(2)
+        key = (d << 32) + pts[None, :, 3]
+        best = torch.full_like(qi, 1 << 62)      # distance * 2^32 + row
+        while qi.numel():
+            shell = mine & (cheb == r[:, None])
+            pairs[qi] += shell.sum(1, dtype=torch.int32)
+            best = torch.minimum(best, torch.where(shell, key, 1 << 62)
+                                 .amin(1))
+            # a lower bound on the distance of every row outside radius r
+            gap_lo = qq - (lo + (qc - r[:, None]) * index.cell) + 1
+            gap_hi = lo + (qc + r[:, None] + 1) * index.cell - qq
+            inf = torch.full_like(gap_lo, 1 << 40)
+            gap_lo = torch.where(qc - r[:, None] - 1 >= 0, gap_lo, inf)
+            gap_hi = torch.where(qc + r[:, None] + 1 <= dims - 1, gap_hi,
+                                 inf)
+            m = torch.minimum(gap_lo, gap_hi).amin(1)
+            done = (m == 1 << 40) | (m * m > (best >> 32))
+            out[qi[done]] = (best[done] & 0xFFFFFFFF).to(torch.int32)
+            keep = ~done
+            qi, qq, qc, r, best = (qi[keep], qq[keep], qc[keep], r[keep] + 1,
+                                   best[keep])
+            cheb, mine, key = cheb[keep], mine[keep], key[keep]
+    return out, pairs
+
+
+def nn_match_plain(q_coords, r_coords, r_mask, q_mask=None,
+                   block: int = 8192):
+    """Plain PyTorch version of kernel C1, and the function's definition: a
+    scan of every reference row. Distances are formed in float64, which
+    holds them exactly (|c| <= 2047 keeps them below 2^27). Queries outside
+    `q_mask` (if given) get index 0."""
     Vq = q_coords.shape[0]
     rc = r_coords.double()
     r_xyz = rc[:, 1:]
@@ -64,41 +211,64 @@ def nn_match_plain(q_coords, r_coords, r_mask, block: int = 8192):
         penal = (q[:, 0:1] != rc[None, :, 0]) | ~r_mask[None, :]
         d = torch.where(penal, torch.full_like(d, _BIG), d)
         out[s:s + block] = torch.argmin(d, dim=1).to(torch.int32)
+    if q_mask is not None:
+        out = torch.where(q_mask, out, 0)
     return out
 
 
-def nn_match(q_coords, r_coords, r_mask, n_batch: int = 0):
+def nn_match(q_coords, r_coords, r_mask, n_batch: int = 0, q_mask=None,
+             index: NNIndex | None = None, pairs: bool = False):
     """Kernel C1 on CUDA tensors, its plain version on CPU tensors.
 
     q_coords [Vq, 4] and r_coords [Vr, 4] int32 (batch, x, y, z), r_mask
-    [Vr] bool. `n_batch == 1` lets the kernel drop the batch compare.
-    Returns [Vq] int32."""
+    [Vr] bool, q_mask [Vq] bool or None (every query valid). `n_batch == 1`
+    drops the batch compare. `index` is the bank's `NNIndex` (built here,
+    and not kept, if None; it must be of these refs and of n_batch).
+    Returns [Vq] int32, 0 for invalid queries; with `pairs` (CUDA only)
+    also the rows each query examined, [Vq] int32."""
     if q_coords.device.type == "cpu":
-        return nn_match_plain(q_coords, r_coords, r_mask)
+        if pairs:
+            raise ValueError("nn_match: pairs are counted by the kernel")
+        return nn_match_plain(q_coords, r_coords, r_mask, q_mask)
     if q_coords.device.type != "cuda":
         raise ValueError(f"nn_match: unsupported device {q_coords.device}")
     Vq, Vr = q_coords.shape[0], r_coords.shape[0]
     if q_coords.dtype != torch.int32 or r_coords.dtype != torch.int32 \
-            or r_mask.dtype != torch.bool:
-        raise ValueError("nn_match: want int32 coords and a bool mask")
+            or r_mask.dtype != torch.bool \
+            or (q_mask is not None and q_mask.dtype != torch.bool):
+        raise ValueError("nn_match: want int32 coords and bool masks")
     if q_coords.shape != (Vq, 4) or r_coords.shape != (Vr, 4) \
-            or r_mask.shape != (Vr,) or Vq == 0 or Vr == 0:
+            or r_mask.shape != (Vr,) or Vq == 0 or Vr == 0 \
+            or (q_mask is not None and q_mask.shape != (Vq,)):
         raise ValueError("nn_match: shape mismatch")
-    native.check_cuda("nn_match", q_coords, r_coords, r_mask)
+    if index is None:
+        index = build_nn_index(r_coords, r_mask, n_batch)
+    if index.batched != (n_batch != 1):
+        raise ValueError("nn_match: index built for another n_batch")
+    native.check_cuda("nn_match", q_coords, r_coords, index.pts,
+                      index.cell_start,
+                      *([q_mask] if q_mask is not None else []))
     out = torch.empty(Vq, dtype=torch.int32, device=q_coords.device)
-    _nn_kernel(native.ptr(q_coords), Vq, native.ptr(r_coords),
-               native.ptr(r_mask), Vr, int(n_batch != 1), native.ptr(out),
+    cnt = torch.empty_like(out) if pairs else None
+    _nn_kernel(native.ptr(q_coords), native.ptr(q_mask), Vq,
+               native.ptr(index.pts), native.ptr(index.cell_start),
+               *index.lo, index.cell, *index.dims, index.items,
+               int(index.batched), native.ptr(out), native.ptr(cnt),
                native.stream(q_coords.device))
-    return out
+    if index.scan:
+        _nn_kernel.scans += 1
+    return (out, cnt) if pairs else out
 
 
 def match_features(q_coords, q_mask, r_coords, r_mask, r_feats,
-                   n_batch: int = 0, compute_dtype=torch.float32):
+                   n_batch: int = 0, compute_dtype=torch.float32,
+                   index: NNIndex | None = None):
     """Nearest reference voxel's features per query, zeros for invalid
-    queries; the gather runs in the compute dtype."""
-    idx = nn_match(q_coords, r_coords, r_mask, n_batch)
+    queries whatever the bank holds; the gather runs in the compute dtype.
+    `index` as for `nn_match`."""
+    idx = nn_match(q_coords, r_coords, r_mask, n_batch, q_mask, index)
     out = r_feats.to(compute_dtype)[idx.long()].to(r_feats.dtype)
-    return out * q_mask[:, None]
+    return torch.where(q_mask[:, None], out, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,9 @@ Training differentiates the column conv through `Conv3ColumnsFunction`
 lidiff_tpu/ops/pallas_conv.py:667-719): the feats gradient is kernel A1 on
 the masked cotangent with tap-reversed, transposed weights over the same
 map, and the weight gradient is kernel A3 (`csrc/conv3_columns_dw.cu`),
-with `conv3_columns_dw_plain` as its plain version.
+with `conv3_columns_dw_plain` as its plain version. Both backward kernels
+run over the forward's tile plan in bf16; A3's blocks follow
+`dw_schedule`, kept on the plan.
 
 The int8 eval conv is kernel A4 (`csrc/conv3_columns_q.cu`, counterpart of
 conv_columns_pallas_v2(quant=True), lidiff_tpu/ops/pallas_conv.py:840):
@@ -35,6 +37,7 @@ that variable.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, field
 
 import torch
 
@@ -78,9 +81,21 @@ _conv3_dw_kernel = native.Kernel(
     [ctypes.c_int,                                       # dtype code
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feats, g, col
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # hit, mask, nvalid
-     ctypes.c_void_p,                                    # dw
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # V C Co G
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # order, act, tap
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lo, len, launch
+     ctypes.c_void_p, ctypes.c_int,                      # tap_first, n
+     ctypes.c_void_p, ctypes.c_void_p,                   # partial, dw
+     ctypes.c_int, ctypes.c_int, ctypes.c_int,           # V C ldf
+     ctypes.c_int, ctypes.c_int, ctypes.c_int,           # Co ldg G
      ctypes.c_void_p])                                   # stream
+
+# The bf16 weight gradient's blocks: (chunk of a tap's active tiles, 128
+# channels of C); chunks are sized for about DW_BLOCKS blocks (four waves
+# at one block per SM of an H100), and hold at least DW_MIN_TILES tiles.
+DW_BLOCKS = 528
+DW_MIN_TILES = 4
+DW_CB = 128       # channels of C per block
+DW_MAX_CO = 256   # output channels per launch; wider Co splits
 
 
 def _column_slabs(f, col_idx, hit):
@@ -347,16 +362,104 @@ def conv3_columns_dw_plain(feats, g, col_idx, hit, out_mask, groups):
     return dw.reshape(27, C, Co)
 
 
+@dataclass
+class DwSchedule:
+    """The bf16 weight gradient's work over a tile plan: for each tap, its
+    active tiles (`tile_taps` bit k) in plan order, cut into chunks of at
+    most `tiles` tiles. Chunk i covers act[tap[i], lo[i] : lo[i] + len[i]];
+    chunks are numbered tap by tap, so tap k's are tap_first[k] ..
+    tap_first[k + 1] - 1; `launch` orders them by their first tile, so
+    that the blocks in flight share tiles across taps."""
+    act: torch.Tensor        # [27, ceil(V / 64)] int32
+    tap: torch.Tensor        # [n] int32
+    lo: torch.Tensor         # [n] int32
+    len: torch.Tensor        # [n] int32
+    launch: torch.Tensor     # [n] int32, chunk ids
+    tap_first: torch.Tensor  # [28] int32
+    tiles: int
+
+
+@dataclass
+class DwPlan:
+    """What kernel A3 derives from a tile plan, kept on it (`TilePlan.dw`):
+    per tap its active tiles first, in plan order; the 27 tap counts on
+    the host, ready once `counted` has passed (None: already there); and
+    the schedules made so far, by chunk size."""
+    act: torch.Tensor              # [27, ceil(V / 64)] int32
+    counts: torch.Tensor           # [27] on the host
+    counted: torch.cuda.Event | None
+    schedules: dict = field(default_factory=dict)   # tiles -> DwSchedule
+
+
+def dw_prepare(plan: TilePlan) -> DwPlan:
+    """`plan`'s `DwPlan`, made on first use. On the card the tap counts are
+    copied to pinned memory behind an event when the forward first runs
+    over the plan (`Conv3ColumnsFunction.forward`), so the backward reads
+    them without waiting for the queue."""
+    if plan.dw is None:
+        bits = (plan.tile_taps[None, :] >> torch.arange(
+            27, dtype=torch.int32, device=plan.tile_taps.device)[:, None]) & 1
+        act = torch.sort(1 - bits, dim=1, stable=True).indices \
+            .to(torch.int32).contiguous()
+        counts, counted = bits.sum(1), None
+        if counts.is_cuda:
+            counts = counts.to("cpu", non_blocking=True)
+            counted = torch.cuda.Event()
+            counted.record()
+        plan.dw = DwPlan(act=act, counts=counts, counted=counted)
+    return plan.dw
+
+
+def dw_schedule(plan: TilePlan, n_cblocks: int) -> DwSchedule:
+    """The schedule of kernel A3's bf16 blocks over `plan` for `n_cblocks`
+    blocks of DW_CB channels per chunk; kept on the plan, so a map's convs
+    share it. The host waits only for the copy of the counts that
+    `dw_prepare` started; the chunk table goes to the card in one copy from
+    pinned memory that the host does not wait for, and the rest is tensor
+    ops on the plan's device."""
+    dw = dw_prepare(plan)
+    if dw.counted is not None:
+        dw.counted.synchronize()
+        dw.counted = None
+    counts = dw.counts.tolist()
+    tiles = max(DW_MIN_TILES,
+                -(-sum(counts) * n_cblocks // DW_BLOCKS))
+    if tiles not in dw.schedules:
+        chunks = [(k, lo, min(tiles, c - lo)) for k, c in enumerate(counts)
+                  for lo in range(0, c, tiles)]
+        first = [0] * 28
+        for k, _, _ in chunks:
+            first[k + 1] += 1
+        for k in range(27):
+            first[k + 1] += first[k]
+        n = len(chunks)
+        table = torch.tensor([ch[i] for i in range(3) for ch in chunks]
+                             + first, dtype=torch.int32)
+        dev = dw.act.device
+        if dev.type == "cuda":
+            table = table.pin_memory().to(dev, non_blocking=True)
+        tap, lo, ln, first = table.split([n, n, n, 28])
+        start = dw.act[tap.long(), lo.long()].long()
+        launch = torch.sort(start * 27 + tap.long(), stable=True).indices
+        dw.schedules[tiles] = DwSchedule(
+            act=dw.act, tap=tap, lo=lo, len=ln,
+            launch=launch.to(torch.int32).contiguous(), tap_first=first,
+            tiles=tiles)
+    return dw.schedules[tiles]
+
+
 def conv3_columns_dw(feats, g, col_idx, hit, out_mask, groups, *,
-                     nvalid=None):
+                     nvalid=None, plan: TilePlan | None = None):
     """Kernel A3 on CUDA tensors, its plain version on CPU tensors.
 
     feats [V, G*C] in the compute dtype; the cotangent `g` [V, G*Co] is
     cast to feats' dtype first, as the TPU kernel does
-    (lidiff_tpu/ops/pallas_conv.py:604). Rows at or past `nvalid` must be
-    masked out by `out_mask`. Returns dW [27, C, Co] float32; blocks add
-    their partial sums with float32 atomics, so the order of the sum over
-    rows changes from run to run."""
+    (lidiff_tpu/ops/pallas_conv.py:604). Returns dW [27, C, Co] float32.
+    bf16 runs over the map's tile plan (`plan`, the forward's; built from
+    `hit` and `out_mask` if None) and sums each tap's chunk partials in a
+    fixed order: deterministic. float32 (rows at or past `nvalid` must be
+    masked out by `out_mask`) adds block partials with float32 atomics, so
+    the order of its sum over rows changes from run to run."""
     g = g.to(feats.dtype).contiguous()
     if feats.device.type == "cpu":
         return conv3_columns_dw_plain(feats, g, col_idx, hit, out_mask,
@@ -380,19 +483,44 @@ def conv3_columns_dw(feats, g, col_idx, hit, out_mask, groups, *,
             or out_mask.dtype != torch.bool:
         raise ValueError("conv3_columns_dw: want int32 col_idx, bool "
                          "hit/mask")
-    if (feats.data_ptr() | g.data_ptr()) % 16:
-        raise ValueError("conv3_columns_dw: feats and g must start on a "
-                         "16-byte boundary (the kernel's vector loads)")
     if nvalid is None:
         nvalid = torch.full((), V, dtype=torch.int32, device=feats.device)
     nvalid = nvalid.to(torch.int32)
     native.check_cuda("conv3_columns_dw", feats, g, col_idx, hit, out_mask,
                       nvalid)
-    dw = torch.zeros(27, C, Co, dtype=torch.float32, device=feats.device)
-    _conv3_dw_kernel(_DTYPE_CODE[feats.dtype], native.ptr(feats),
-                     native.ptr(g), native.ptr(col_idx), native.ptr(hit),
-                     native.ptr(out_mask), native.ptr(nvalid), native.ptr(dw),
-                     V, C, Co, G, native.stream(feats.device))
+    if feats.dtype == torch.float32:
+        dw = torch.zeros(27, C, Co, dtype=torch.float32, device=feats.device)
+        _conv3_dw_kernel(0, native.ptr(feats), native.ptr(g),
+                         native.ptr(col_idx), native.ptr(hit),
+                         native.ptr(out_mask), native.ptr(nvalid),
+                         *[native.ptr(None)] * 7, 0, native.ptr(None),
+                         native.ptr(dw), V, C, C, Co, Co, G,
+                         native.stream(feats.device))
+        return dw
+    plan = plan if plan is not None else tile_plan(hit, out_mask)
+    order, _ = _plan_args(plan, hit, out_mask)
+    if Co > DW_MAX_CO:   # one launch per DW_MAX_CO output channels
+        g3 = g.reshape(V, G, Co)
+        return torch.cat([conv3_columns_dw(
+            feats, g3[:, :, a:a + DW_MAX_CO].reshape(V, -1), col_idx, hit,
+            out_mask, G, nvalid=nvalid, plan=plan)
+            for a in range(0, Co, DW_MAX_CO)], dim=2)
+    fp, gp = _padded(feats, G, 8), _padded(g, G, 8)
+    if (fp.data_ptr() | gp.data_ptr()) % 16:
+        raise ValueError("conv3_columns_dw: feats and g must start on a "
+                         "16-byte boundary (the kernel's vector loads)")
+    sched = dw_schedule(plan, -(-C // DW_CB))
+    n = sched.tap.shape[0]
+    partial = torch.empty(n, C, Co, dtype=torch.float32, device=feats.device)
+    dw = torch.empty(27, C, Co, dtype=torch.float32, device=feats.device)
+    _conv3_dw_kernel(1, native.ptr(fp), native.ptr(gp), native.ptr(col_idx),
+                     native.ptr(hit), native.ptr(out_mask), native.ptr(nvalid),
+                     native.ptr(order), native.ptr(sched.act),
+                     native.ptr(sched.tap), native.ptr(sched.lo),
+                     native.ptr(sched.len), native.ptr(sched.launch),
+                     native.ptr(sched.tap_first), n, native.ptr(partial),
+                     native.ptr(dw), V, C, fp.shape[1] // G, Co,
+                     gp.shape[1] // G, G, native.stream(feats.device))
     return dw
 
 
@@ -421,6 +549,8 @@ class Conv3ColumnsFunction(torch.autograd.Function):
                 out_dtype, plan):
         if plan is None and feats.is_cuda and feats.dtype == torch.bfloat16:
             plan = tile_plan(hit, out_mask)
+        if plan is not None and ctx.needs_input_grad[1]:
+            dw_prepare(plan)
         ctx.save_for_backward(feats, weights, col_idx, hit, out_mask, nvalid)
         ctx.groups, ctx.plan = groups, plan
         return _conv3_run(feats, col_idx, hit, weights, out_mask, groups,
@@ -440,7 +570,7 @@ class Conv3ColumnsFunction(torch.autograd.Function):
             Conv3ColumnsFunction.launches += _conv3_kernel.launches - before
         if ctx.needs_input_grad[1]:
             dw = conv3_columns_dw(feats, g, col_idx, hit, out_mask,
-                                  ctx.groups, nvalid=nvalid)
+                                  ctx.groups, nvalid=nvalid, plan=ctx.plan)
             dw = dw.to(weights.dtype)
         return df, dw, None, None, None, None, None, None, None
 

@@ -2,7 +2,7 @@
 """Kernel A1, the 27-tap column conv of the PyTorch port, at the sampling
 path's widths on one GPU, without the rest of chip_smoke.py.
 
-    python3 scripts/torch_a1_probe.py [--all] [--a4] [--backward]
+    python3 scripts/torch_a1_probe.py [--all] [--a4] [--backward] [--c1]
 
 Builds the kernels (printing ptxas's registers, shared memory and spills
 per kernel), makes the sampling path's 180k-point pyramid (t ~ T) as
@@ -10,7 +10,8 @@ chip_smoke.py does, prints the tile plan's redundancy and build time per
 level, and holds A1 against its plain version at (384, 256) L3 (every
 width with --all), G in {1, 2}, float32 and bf16, with chip_smoke.py's
 tolerances, then times it. --a4 adds kernel A4 (the int8 conv) at the
-same widths, --backward A3 and A2's feats gradient.
+same widths, --backward A3 and A2's feats gradient, --c1 kernel C1 at
+every level against both conditioning banks (chip_smoke.py's check_c1).
 """
 
 import argparse
@@ -29,6 +30,8 @@ def main() -> int:
     ap.add_argument("--a4", action="store_true", help="also kernel A4")
     ap.add_argument("--backward", action="store_true",
                     help="also A3 and A2's feats gradient")
+    ap.add_argument("--c1", action="store_true",
+                    help="also C1 at every level and both banks")
     args = ap.parse_args()
     import subprocess
 
@@ -37,7 +40,7 @@ def main() -> int:
     import chip_smoke as cs
     from lidiff_tpu_torch import config as cfg_mod
     from lidiff_tpu_torch.models import diffusion
-    from lidiff_tpu_torch.ops import native, sparse_conv
+    from lidiff_tpu_torch.ops import knn, native, sparse_conv
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -48,7 +51,8 @@ def main() -> int:
     t0 = time.time()
     reports = native.build_all()
     cs.log(f"build: {len(reports)} libraries in {time.time() - t0:.1f} s")
-    for name in ("conv3_columns", "conv3_columns_q"):
+    for name in ("conv3_columns", "conv3_columns_q", "conv3_columns_dw",
+                 "nn_match"):
         if name in reports:
             cs.log_ptxas(name, reports[name])
     if not args.all:
@@ -68,6 +72,11 @@ def main() -> int:
     cs.log(f"A1 {cs.A1_TIMED}: {res}")
     if args.a4:
         cs.log(f"A4 {cs.A1_TIMED}: {cs.check_a4(pyr, sparse_conv, dev)}")
+    if args.c1:
+        banks = {"cond": task.pyramid_part(part).levels[-1].geom,
+                 "uncond": task.pyramid_part_tiny(
+                     torch.zeros_like(part)).levels[-1].geom}
+        cs.log(f"C1: {cs.check_c1(pyr, banks, knn)}")
     if args.backward:
         cs.log(f"A2/A3: {cs.check_backward(pyr, sparse_conv, dev)}")
     return 0

@@ -9,7 +9,8 @@ active tap, input widths that are not multiples of 8 or 16 (zero-padded by
 the wrappers) and K chunks with a tail, output widths that are not
 multiples of 8 and Co = 384 (two blocks of 192 across the width), no
 bias, no ReLU, and the float32 path. Tolerances as in chip_smoke.py: B1
-and C1 exact; A1 float32 within 1e-5 of max|ref| (sum order), bf16
+and C1 exact (C1 over its grid index also examines the rows its
+tensor-code search examines); A1 float32 within 1e-5 of max|ref| (sum order), bf16
 within one bf16 ulp plus 1e-4 of max|ref|. The bf16 down and transpose
 convs (plain PyTorch on both sides, atomic scatter order on the card)
 are held to the bound stated in `sparse_conv_down`: n * 2^-7 * A per
@@ -18,9 +19,10 @@ and channels.
 
 A3 (the weight gradient) is held to its plain version on the same bf16 or
 float32 operands within 1e-4 of max|ref| in float32 and 5e-4 in bf16: both
-sum float32 products, the kernel over blocks with atomics in an order that
-changes from run to run, and in bf16 on the tensor cores, which truncate
-where they add to the float32 accumulator.
+sum float32 products, the kernel in float32 over blocks with atomics in an
+order that changes from run to run, in bf16 over the tile plan's chunks in
+a fixed order (two runs agree bit for bit) on the tensor cores, which
+truncate where they add to the float32 accumulator.
 A4 (the int8 eval conv) is held to its plain version on the same int8
 feats and folded weights as A1 is to its own, on widths that are and are
 not multiples of 16 (the wrapper pads them for the 16-byte int8 copies).
@@ -81,6 +83,59 @@ def test_nn_match(dev, vq, vr, batched):
     rm = torch.from_numpy(rng.random(vr) < 0.8).to(dev)
     got = knn.nn_match(q, r, rm, n_batch=0 if batched else 1)
     assert torch.equal(got, knn.nn_match_plain(q, r, rm))
+
+
+def _c1_case(case, rng):
+    """(q, q_mask, r, r_mask, n_batch) as numpy arrays, odd sizes."""
+    def cloud(v, items, lo, hi):
+        return np.concatenate([rng.integers(0, items, (v, 1)),
+                               rng.integers(lo, hi, (v, 3))], 1)
+    if case == "odd":
+        q, r = cloud(4099, 2, -700, 700), cloud(1031, 2, -700, 700)
+        return q, rng.random(4099) < 0.6, r, rng.random(1031) < 0.9, 0
+    if case == "ties":      # a doubled lattice: equidistant refs everywhere
+        g = np.arange(-20, 21, 4)
+        xyz = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        xyz = np.concatenate([xyz, xyz[::-1]])
+        r = np.concatenate([np.zeros((len(xyz), 1), int), xyz], 1)
+        return (cloud(2053, 1, -22, 23), np.ones(2053, bool), r,
+                np.ones(len(r), bool), 1)
+    if case == "far":       # far queries, one of them at the other corner
+        r = cloud(517, 2, -80, 80)
+        q = cloud(1001, 2, -2047, 2048)
+        q[0, 1:] = 2047
+        r[0, 1:] = -2047
+        return q, np.ones(1001, bool), r, rng.random(517) < 0.9, 0
+    if case == "uncond":    # 8 rows, one valid voxel per item: a scan
+        r = np.zeros((8, 4), int)
+        r[3] = [1, 0, 0, 0]
+        rm = np.zeros(8, bool)
+        rm[[0, 3]] = True
+        return cloud(777, 2, -300, 300), rng.random(777) < 0.6, r, rm, 0
+    # an item without a valid ref
+    q, r = cloud(999, 2, -100, 100), cloud(301, 2, -100, 100)
+    rm = rng.random(301) < 0.9
+    rm[r[:, 0] == 0] = False
+    return q, rng.random(999) < 0.9, r, rm, 0
+
+
+@pytest.mark.parametrize("case", ["odd", "ties", "far", "uncond",
+                                  "item_without_refs"])
+def test_nn_match_grid(dev, case):
+    """C1 over its grid index: equal to the plain scan on every query (0
+    on invalid ones), and the rows each query examined equal to the
+    search's tensor-code version, which follows the same shells and stop
+    rule."""
+    rng = np.random.default_rng(len(case))
+    *arrays, n_batch = _c1_case(case, rng)
+    q, qm, r, rm = (torch.from_numpy(np.asarray(a)).to(dev) for a in arrays)
+    q, r = q.to(torch.int32).contiguous(), r.to(torch.int32).contiguous()
+    index = knn.build_nn_index(r, rm, n_batch)
+    assert index.scan == (case == "uncond")
+    got, pairs = knn.nn_match(q, r, rm, n_batch, qm, index, pairs=True)
+    assert torch.equal(got, knn.nn_match_plain(q, r, rm, qm))
+    emu, emu_pairs = knn.nn_grid_plain(q, qm, index)
+    assert torch.equal(got, emu) and torch.equal(pairs, emu_pairs)
 
 
 @pytest.mark.parametrize("dtype,out_dtype", [
@@ -278,7 +333,9 @@ def _grad_inputs(dev, dtype, cin, cout, G, n=300, caps=(1024, 512)):
     (3, 8, 1, 300, (1024, 512)), (5, 24, 2, 300, (1024, 512)),
     (16, 72, 2, 300, (1024, 512)), (40, 64, 1, 300, (1024, 512)),
     (136, 8, 2, 300, (1024, 512)), (72, 130, 1, 300, (1024, 512)),
-    (16, 24, 1, 5, (16, 8))])
+    (16, 24, 1, 5, (16, 8)), (3, 32, 1, 300, (1024, 512)),
+    (384, 256, 1, 300, (1024, 512)), (8, 3, 2, 300, (1024, 512)),
+    (24, 384, 1, 300, (1024, 512))])
 def test_conv3_columns_dw(dev, dtype, cin, cout, G, n, caps):
     g, km, f, _, cot = _grad_inputs(dev, dtype, cin, cout, G, n, caps)
     assert int(km.nvalid) < g.capacity
@@ -291,6 +348,33 @@ def test_conv3_columns_dw(dev, dtype, cin, cout, G, n, caps):
     assert scale > 0
     tol = 1e-4 if dtype == torch.float32 else 5e-4
     assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("cin,cout,G", [(3, 32, 1), (5, 24, 2),
+                                        (384, 256, 1), (8, 3, 2)])
+def test_conv3_columns_dw_plan(dev, cin, cout, G):
+    """bf16 A3 runs over the plan it is given and sums in a fixed order:
+    two runs agree bit for bit, and a plan whose busiest tile drops a tap
+    its rows hit changes that tap's dW and no other."""
+    g, km, f, _, cot = _grad_inputs(dev, torch.bfloat16, cin, cout, G)
+    args = (f, cot.to(torch.bfloat16), km.col_idx, km.hit, g.mask, G)
+    plan = km.plan()
+    got = sparse_conv.conv3_columns_dw(*args, plan=plan)
+    assert torch.equal(got, sparse_conv.conv3_columns_dw(*args, plan=plan))
+    ref = sparse_conv.conv3_columns_dw_plain(*args)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 5e-4 * scale
+    taps = plan.tile_taps.tolist()
+    t = max(range(len(taps)), key=lambda i: bin(taps[i]).count("1"))
+    k = (taps[t] & ~(1 << 13)).bit_length() - 1
+    assert k >= 0
+    cut = plan.tile_taps.clone()
+    cut[t] &= ~(1 << k)
+    bad = sparse_conv.conv3_columns_dw(
+        *args, plan=grid.TilePlan(order=plan.order, tile_taps=cut))
+    others = [j for j in range(27) if j != k]
+    assert torch.equal(bad[others], got[others])
+    assert float((bad[k] - ref[k]).abs().max()) > 5e-3 * scale
 
 
 @pytest.mark.parametrize("dtype,out_dtype", [
