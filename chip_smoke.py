@@ -7,7 +7,9 @@ From the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a):
   1. builds the hand-written kernels from `lidiff_tpu_torch/csrc/` with nvcc;
   2. holds each kernel against its plain PyTorch version on the card at the
-     shapes of the sampling path (B1 and C1 exactly, C1 at all five levels
+     shapes of the sampling path (B1 and C1 exactly: B1 with its plan key
+     at all five levels, the tile plan built from that key against the
+     tensor-op plan on the t ~ T and t ~ 0 pyramids; C1 at all five levels
      against both conditioning banks over each bank's index, with the
      index's build time and the rows examined per query; A1 within the
      stated tolerances), and times both;
@@ -29,12 +31,14 @@ the kernels are built for sm_90a):
      counts, peak memory and a profile of one step;
   7. runs the `lidiff_tpu_torch.train` CLI on a small synthetic KITTI tree:
      two steps, then a resume that takes a third;
-  8. holds the pruned 1-NN matcher (kernel C2 and its window-bound kernel)
-     against kernel C1 on every valid query and against the plain versions
-     on 65,536 queries, at the refiner's chamfer shape (1.08M x 360k and
-     back), on a two-item batch with invalid rows, and at the sampling
-     shapes; holds the chamfer loss (exact and grid) against the CPU, and a
-     small f32 refiner training step on the card against the CPU;
+  8. holds the chamfer's 1-NN matcher (kernel C2 over its grid index)
+     against kernel C1 on every valid query and against its plain version
+     (rows staged too) and the plain scan on 512 whole tiles, at the
+     refiner's chamfer shape (1.08M x 360k and back), on a two-item batch
+     with invalid rows, and at the sampling shapes, timing it with and
+     without its index beside C1 over its own; holds the chamfer loss
+     (exact and grid) against the CPU, and a small f32 refiner training
+     step on the card against the CPU;
   9. takes 2 + 3 optimizer steps on `RefineTask` through
      `Trainer.train_step` at full width (180k jittered points, up_factor 6,
      a 360k-point target), split into model forward, chamfer index passes,
@@ -82,6 +86,8 @@ TILE = 10
 PEAK_BF16 = 989e12        # H100 SXM dense tensor-core bf16, FLOP/s
 PEAK_F32 = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
+SPIN_HZ = 2e9             # spin cycles a second: above the H100's clock, so a
+                          # spin of n cycles lasts at least n / SPIN_HZ s
 # A1 widths of the sampling path: (Cin, Cout, pyramid level it runs at)
 A1_WIDTHS = [(3, 32, 0), (32, 32, 0), (32, 64, 2), (64, 64, 2),
              (64, 128, 3), (128, 128, 3), (128, 256, 4), (256, 256, 4),
@@ -115,7 +121,7 @@ PIPE_SCAN = 120_000         # points of the pipeline's synthetic scan, about
 SMALL_DENOISE_TOL = 1e-3    # small f32 guided denoise (float32 or int8
                             # convs), card against CPU, x max(max|eps|, 1)
 REFINE_UP = 6               # offsets per point: 180k points -> 1.08M
-C2_SUBSET_TILES = 256       # whole query tiles (65,536 queries) held
+C2_SUBSET_TILES = 512       # whole query tiles (16,384 queries) held
                             # against the plain versions
 PLAIN_PAIRS = 1 << 28       # (query, ref) pairs per block of nn_match_plain
 CHAMFER_GRID_RTOL = 1e-3    # grid against exact loss, as tests/test_chamfer.py
@@ -124,10 +130,6 @@ CHOICES_DIFFER = 1e-4       # share of ReLU signs, and of chamfer picks, that
                             # may fall the other way on the CPU: inputs
                             # within float32 rounding of zero, resp. points
                             # within it of a grid cell's edge
-
-
-# kernels whose entry point is not named after their source file
-NAMES = {"C2w": "nn_window_bound"}
 
 
 def log(msg: str) -> None:
@@ -158,10 +160,11 @@ def kernel_table() -> dict:
             "A4": sparse_conv._conv3_q_kernel,
             "A2": sparse_conv.Conv3ColumnsFunction,
             "A3": sparse_conv._conv3_dw_kernel,
-            "B1": grid._kmap3_kernel, "C1": knn._nn_kernel,
+            "B1": grid._kmap3_kernel, "B1 taps": grid._taps_kernel,
+            "C1": knn._nn_kernel,
             "C1 scan": Count(knn._nn_kernel, "scans"),
             "C1 index": Count(knn.NNIndex, "builds"),
-            "C2": knn._pruned_kernel, "C2w": knn._bound_kernel}
+            "C2": knn._tile_kernel}
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -171,6 +174,31 @@ def _time_ms(fn, iters: int = 10) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() over `iters` runs, queued behind a spin
+    kernel that outlasts their issue on the host, so that the gaps in
+    which the card waits for the host (a small kernel's launch costs more
+    host time than its run) do not count. fn() must not make the host
+    wait for the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    issue_s = time.perf_counter() - t0      # at least the issue time
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * issue_s + 1e-3) * SPIN_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -213,27 +241,47 @@ def make_cfg(num_points: int, s_steps: int, cr: float = 1.0,
 
 
 def check_b1(pyr, grid):
-    """B1 against its plain version on every level: bit-exact."""
+    """B1 against its plain version on every level: col_idx, hit and the
+    plan key bit-exact, the plan key also against the hit patterns. Times
+    B1 at L0 beside its plain version and `torch.searchsorted` over the
+    same 9 V column keys (col_idx only)."""
     import torch
     for li, lvl in enumerate(pyr.levels):
         g = lvl.geom
-        col, hit = grid.kmap3_columns(g.key, g.coords, g.mask, g.stride)
-        pcol, phit = grid.kmap3_columns_plain(g.key, g.coords, g.mask,
-                                              g.stride)
-        if not (torch.equal(hit, phit) and torch.equal(col, pcol)):
+        got = grid.kmap3_columns(g.key, g.coords, g.mask, g.stride)
+        want = grid.kmap3_columns_plain(g.key, g.coords, g.mask, g.stride)
+        pattern = grid.hit_patterns(want[1], g.mask)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) or \
+                not torch.equal(got[2], torch.where(pattern == 0,
+                                                    grid.NO_TAP, pattern)):
             raise AssertionError(f"B1 differs from its plain version at L{li}")
     g = pyr.levels[0].geom
     V = g.capacity
-    ms = _time_ms(lambda: grid.kmap3_columns(g.key, g.coords, g.mask, 1))
+    ms = _device_ms(lambda: grid.kmap3_columns(g.key, g.coords, g.mask, 1))
+    host_ms = _time_ms(lambda: grid.kmap3_columns(g.key, g.coords, g.mask,
+                                                  1))
     plain_ms = _time_ms(lambda: grid.kmap3_columns_plain(g.key, g.coords,
                                                          g.mask, 1), 3)
+    # the library call: the lower bounds of the same 9 V column keys
+    # (col_idx; hit needs three more gathers)
+    from lidiff_tpu_torch.ops import keys as K
+    off = torch.tensor([[dx, dy, -1] for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+                       dtype=torch.int32, device=g.key.device)
+    q, _ = K.pack(g.coords[:, None, 0].expand(V, 9),
+                  g.coords[:, None, 1:] + off[None])
+    q = torch.where(g.mask[:, None], q, K.PAD_KEY).contiguous()
+    lib_ms = _device_ms(lambda: torch.searchsorted(g.key, q))
     probes = math.ceil(math.log2(V)) + 3
     bound, by = _bound_ms(9 * V * probes, PEAK_F32,
-                          V * (8 + 16 + 1 + 9 * 4 + 27))
-    log(f"B1 kmap3_columns: 5 levels bit-exact; L0 V={V}: {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                          V * (8 + 16 + 1 + 9 * 4 + 27 + 4))
+    log(f"B1 kmap3_columns: 5 levels bit-exact, plan key = hit patterns; "
+        f"L0 V={V}: {ms:.4f} ms on the card ({host_ms:.4f} ms paced by "
+        f"the host), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); torch.searchsorted over the 9 V column "
+        f"keys (col_idx only) {lib_ms:.4f} ms")
+    return dict(max_abs_err=0, ms=ms, host_paced_ms=host_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
 
 
 def check_c1(pyr, banks, knn):
@@ -310,20 +358,47 @@ def _computed_taps(pattern):
     return grid.TILE_ROWS * int(bits.sum())
 
 
+def _tensor_plan(grid, hit, mask):
+    """The tile plan as tensor ops build it from the hits alone (hit
+    patterns, a sort, the OR tree): the reference of B1's plan key and
+    kmap3_tile_taps."""
+    import torch
+    pattern = grid.hit_patterns(hit, mask)
+    key = torch.where(pattern == 0, grid.NO_TAP, pattern)
+    order = torch.sort(key, stable=True).indices
+    return order.to(torch.int32), grid.tile_taps(pattern[order])
+
+
 def plan_stats(pyr, dev, what: str):
-    """Per level of `pyr`: the tile plan's build time, and the computed tap
-    products over hit taps (the redundancy) with 64-row tiles in key order
-    and in plan order. Returns {level: (hit taps, computed in key order,
-    computed in plan order)}."""
+    """Per level of `pyr`: the tile plan from B1's plan key (`plan()`)
+    against the tensor-op plan from the hits (order and tile taps equal),
+    the times of B1, B1 with the plan and the tensor-op plan, and the
+    computed tap products over hit taps (the redundancy) with 64-row tiles
+    in key order and in plan order. Returns ({level: (hit taps, computed in
+    key order, computed in plan order)}, {level: ms of B1 with the plan on
+    the card})."""
     import torch
     from lidiff_tpu_torch.ops import grid
-    stats = {}
+    stats, b1_plan = {}, {}
     for li, lvl in enumerate(pyr.levels):
         km, g = lvl.kmap3, lvl.geom
-        ms = (_time_ms(lambda: grid.tile_plan(km.hit), 5) if dev == "cuda"
-              else float("nan"))
-        pattern = grid.hit_patterns(km.hit, g.mask)
         plan = km.plan()
+        order, taps = _tensor_plan(grid, km.hit, g.mask)
+        if not (torch.equal(plan.order, order)
+                and torch.equal(plan.tile_taps, taps)):
+            raise AssertionError(f"the tile plan from B1's key differs from "
+                                 f"the tensor-op plan ({what}, L{li})")
+        if dev == "cuda":
+            def b1_and_plan():
+                key = grid.kmap3_columns(g.key, g.coords, g.mask, g.stride)[2]
+                return grid.plan_from_keys(key)
+            b1_ms = _device_ms(lambda: grid.kmap3_columns(
+                g.key, g.coords, g.mask, g.stride))
+            b1_plan[li] = _device_ms(b1_and_plan)
+            old_ms = _device_ms(lambda: _tensor_plan(grid, km.hit, g.mask))
+        else:
+            b1_ms = b1_plan[li] = old_ms = float("nan")
+        pattern = grid.hit_patterns(km.hit, g.mask)
         hits = int(km.hit.sum())
         before = _computed_taps(pattern)
         after = _computed_taps(pattern[plan.order.long()])
@@ -333,9 +408,11 @@ def plan_stats(pyr, dev, what: str):
             f"{hits / max(int(g.mask.sum()), 1):.2f} hit taps/voxel; "
             f"computed/hit taps {before / max(hits, 1):.2f}x in key order, "
             f"{after / max(hits, 1):.2f}x in plan order; "
-            f"{zero} of {plan.tile_taps.shape[0]} tiles with no tap; "
-            f"build {ms:.4f} ms")
-    return stats
+            f"{zero} of {plan.tile_taps.shape[0]} tiles with no tap; the "
+            f"plan from B1's key equals the tensor-op plan; on the card B1 "
+            f"{b1_ms:.4f} ms, B1 and the plan {b1_plan[li]:.4f} ms, the "
+            f"tensor-op plan from the hits {old_ms:.4f} ms")
+    return stats, b1_plan
 
 
 def check_a1(pyr, sc, dev, stats):
@@ -798,11 +875,11 @@ def run(steps: int, dev: str = "cuda"):
                                          mask=cond.mask[:cap].contiguous(),
                                          capacity=cap)
     t0 = time.time()
-    stats = plan_stats(pyr, dev, "t~T")
+    stats, b1_plan_ms = plan_stats(pyr, dev, "t~T")
     plan_stats(task.pyramid_full(x_init + 0.01 * torch.randn(
         x_init.shape, generator=torch.Generator(device=dev).manual_seed(10),
         device=dev)), dev, "t~0")
-    res = {"B1": check_b1(pyr, grid),
+    res = {"B1": {**check_b1(pyr, grid), "with_plan_ms": b1_plan_ms},
            "C1": check_c1(pyr, {"cond": cond,
                                 "cond at the default capacity": cond_default,
                                 "uncond": pyr_u.levels[-1].geom}, knn),
@@ -1045,8 +1122,9 @@ def jittered(points, seed: int):
 
 def batched_match_inputs(dev, n_q: int = 100_000, n_r: int = 40_000):
     """Two items of n_q query and n_r reference points, a tenth of each
-    invalid, quantized and sorted as the grid chamfer does: about 200k x
-    80k, so that the batch compare and the pruning across items run."""
+    invalid, quantized as the grid chamfer does (the references sorted):
+    about 200k x 80k, so that the batch compare and tiles across items
+    run."""
     import numpy as np
     import torch
     from lidiff_tpu_torch.ops import chamfer
@@ -1058,107 +1136,106 @@ def batched_match_inputs(dev, n_q: int = 100_000, n_r: int = 40_000):
     mx = torch.from_numpy(rng.random(2 * n_q) < 0.9).to(dev)
     my = torch.from_numpy(rng.random(2 * n_r) < 0.9).to(dev)
     res = chamfer._adaptive_res([(xf, mx), (yf, my)])
-    q, qm, _ = chamfer.grid_sort(xf, mx, res, 2)
+    q, qm = chamfer.grid_coords(xf, mx, res, 2)
     r, rm, _ = chamfer.grid_sort(yf, my, res, 2)
     return q, qm, r, rm
 
 
 def check_c2_case(knn, label, q, qm, r, rm, n_batch, c1_iters: int = 10):
-    """Kernel C2 and its window-bound kernel on one (queries, refs) pair:
-    C2 against C1 on every valid query; against `nn_match_pruned_plain`
-    (same intervals) and `nn_match_plain` (all refs) on C2_SUBSET_TILES
-    whole query tiles; the bound kernel against `window_bound_plain` on
-    every tile. All exact. Then the times of the prolog, the kernel and C1,
-    what the intervals keep, and the bound for the pairs inside them."""
+    """Kernel C2 on one (queries, refs) pair: against C1 on every valid
+    query; against its plain version (indices and rows staged) and
+    `nn_match_plain` (all refs) on C2_SUBSET_TILES whole tiles. All exact.
+    Then the times of the index build (with the tile order) and the
+    kernel, beside C1 over its own index, the rows staged per tile and the
+    pairs they make, the bound by bytes and, for comparison, the staged
+    pairs' operations."""
     import torch
-    import torch.nn.functional as F
     T = knn.QTILE
     Vq, Vr = q.shape[0], r.shape[0]
     dev = q.device
     nt = -(-Vq // T)
-    start, cnt = knn.prune_intervals(q, qm, r, rm, n_batch)
-    idx = knn.nn_match_intervals(q, r, rm, start, cnt, n_batch)
+    index = knn.build_tile_index(r, rm, n_batch)
+    order = knn.tile_order(q, qm, index)
+    idx, staged = knn.nn_tiles(q, qm, index, order)
+    if not torch.equal(idx, knn.nn_match_tiled(q, qm, r, rm, n_batch)):
+        raise AssertionError(f"C2 ({label}): the entry point differs")
     c1 = knn.nn_match(q, r, rm, n_batch)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
     if not torch.equal(idx[qm], c1[qm]):
         raise AssertionError(f"C2 ({label}) differs from C1 on "
                              f"{int((idx != c1)[qm].sum())} valid queries")
-    if Vr < knn.UWND_MIN or -(-Vr // knn.RBLK) < 3:
-        raise AssertionError(f"C2 ({label}): too few refs for the pruning "
-                             "this check is about")
-    window = knn.window_rows(Vr)
-    win = knn.window_starts(q, r, window)
-    u2 = knn.window_bound(q, qm, r, rm, win, window, n_batch)
-    u2_plain = knn.window_bound_plain(q, qm, r, rm, win, window,
-                                      n_batch != 1)
-    if not torch.equal(u2, u2_plain):
-        raise AssertionError(f"the window bound ({label}) differs from its "
-                             f"plain version on {int((u2 != u2_plain).sum())}"
-                             " tiles")
     # whole tiles, drawn with a fixed seed (not the ragged last one)
-    full_tiles = Vq // T
-    tiles = torch.randperm(full_tiles, generator=torch.Generator()
+    tiles = torch.randperm(Vq // T, generator=torch.Generator()
                            .manual_seed(17))[:C2_SUBSET_TILES].sort().values
-    tiles = tiles.to(dev)
-    rows = (tiles[:, None] * T + torch.arange(T, device=dev)).reshape(-1)
-    q_sub, qm_sub, got = q[rows], qm[rows], idx[rows]
-
-    def pruned_plain():
-        return knn.nn_match_pruned_plain(
-            q_sub, qm_sub, r, rm, n_batch, intervals=(start[tiles],
-                                                      cnt[tiles]))
-    plain = pruned_plain()
-    scan_all = knn.nn_match_plain(q_sub, r, rm,
+    rows = (order.long()[tiles.to(dev)[:, None] * T
+                         + torch.arange(T, device=dev)]).reshape(-1)
+    plain, plain_staged = knn.nn_tiles_plain(q, qm, index, order, tiles)
+    if not torch.equal(plain_staged, staged[tiles.to(dev)]):
+        raise AssertionError(f"C2 ({label}): rows staged differ from its "
+                             "plain version")
+    scan_all = knn.nn_match_plain(q[rows], r, rm, qm[rows],
                                   block=max(64, PLAIN_PAIRS // Vr))
-    for name, ref in (("its plain version", plain),
+    for name, ref in (("its plain version", plain[rows]),
                       ("the plain scan of every ref", scan_all)):
-        if not torch.equal(got[qm_sub], ref[qm_sub]):
+        if not torch.equal(idx[rows], ref):
             raise AssertionError(
                 f"C2 ({label}) differs from {name} on "
-                f"{int((got != ref)[qm_sub].sum())} of {int(qm_sub.sum())} "
+                f"{int((idx[rows] != ref).sum())} of {int(qm[rows].sum())} "
                 "valid queries")
 
-    prolog_ms = _time_ms(lambda: knn.prune_intervals(q, qm, r, rm, n_batch), 5)
-    ms = _time_ms(lambda: knn.nn_match_intervals(q, r, rm, start, cnt,
-                                                 n_batch), 5)
-    c1_ms = _time_ms(lambda: knn.nn_match(q, r, rm, n_batch), c1_iters)
-    bound_kernel_ms = _time_ms(lambda: knn.window_bound(q, qm, r, rm, win,
-                                                        window, n_batch))
-    plain_ms = _time_ms(pruned_plain, 1)
-    bound_plain_ms = _time_ms(lambda: knn.window_bound_plain(
-        q, qm, r, rm, win, window, n_batch != 1), 1)
+    def build():
+        ix = knn.build_tile_index(r, rm, n_batch)
+        return knn.tile_order(q, qm, ix)
+    # on the card (no host read for n_batch >= 1); the whole call also
+    # paced by the host, as a lone call runs
+    timer = _device_ms if n_batch >= 1 else _time_ms
+    index_ms = timer(build, 5)
+    ms = timer(lambda: knn.nn_tiles(q, qm, index, order), 10)
+    total_ms = timer(lambda: knn.nn_match_tiled(q, qm, r, rm, n_batch), 5)
+    host_total_ms = _time_ms(lambda: knn.nn_match_tiled(q, qm, r, rm,
+                                                        n_batch), 5)
+    c1_index = knn.build_nn_index(r, rm, n_batch)
+    c1_index_ms = _time_ms(lambda: knn.build_nn_index(r, rm, n_batch), 3)
+    c1_ms = _device_ms(lambda: knn.nn_match(q, r, rm, n_batch, qm, c1_index),
+                       c1_iters)
+    plain_ms = _time_ms(lambda: knn.nn_tiles_plain(q, qm, index, order,
+                                                   tiles), 1)
 
-    # valid (query, ref) pairs inside the intervals, and in all
-    q_valid = F.pad(qm, (0, nt * T - Vq)).reshape(nt, T).sum(1)
-    r_before = F.pad(rm.long().cumsum(0), (1, 0))
-    r_valid = r_before[(start + cnt).long()] - r_before[start.long()]
-    pairs = float((q_valid * r_valid).sum())
-    all_pairs = float(qm.sum()) * float(rm.sum())
-    kept = float(cnt.sum()) / (nt * Vr)
-    # per pair: 3 multiply-adds, a subtract, a compare, as C1's bound
-    bound, by = _bound_ms(pairs * 8, PEAK_F32,
-                          Vq * (16 + 4) + Vr * 17 + nt * 8)
-    w_valid = r_before[(win + window).long()] - r_before[win.long()]
-    w_bound, w_by = _bound_ms(float((q_valid * w_valid).sum()) * 8, PEAK_F32,
-                              Vq * 17 + Vr * 17 + nt * 8)
-    log(f"C2 nn_match_pruned, {label}: {Vq} queries x {Vr} refs, exact "
-        f"against C1 (all valid queries) and both plain versions "
-        f"({rows.shape[0]} queries); prolog {prolog_ms:.4f} ms ({window}-row "
-        f"window bound kernel {bound_kernel_ms:.4f} ms, its plain version "
-        f"{bound_plain_ms:.2f} ms, bound {w_bound:.4f} ms ({w_by})), kernel "
-        f"{ms:.4f} ms, C1 for the same call {c1_ms:.4f} ms; intervals keep "
-        f"{100 * kept:.2f}% of the (tile, block) pairs, longest "
-        f"{int(cnt.max())} of {Vr} rows; {pairs:.4g} valid pairs inside them "
-        f"of {all_pairs:.4g}: bound {bound:.4f} ms ({by}), plain version on "
-        f"the subset {plain_ms:.2f} ms")
-    return dict(
-        kept=kept,
-        C2=dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None, prolog_ms=prolog_ms, c1_ms=c1_ms,
-                kept_share=kept, pairs=pairs, unpruned_pairs=all_pairs),
-        C2w=dict(max_abs_err=0, ms=bound_kernel_ms, plain_ms=bound_plain_ms,
-                 bound_ms=w_bound, bound_by=w_by, library_ms=None))
+    nq = int(qm.sum())
+    # (query, row) pairs the kernel evaluates: each staged row against the
+    # tile's queries of its item, at most the tile's live queries
+    live = torch.zeros(nt * T, dtype=torch.bool, device=dev)
+    live[:Vq] = qm[order.long()]
+    per_tile = live.reshape(nt, T).sum(1)
+    pairs = float((staged.double() * per_tile).sum())
+    # The bound is the bytes: the queries and their mask, the index and
+    # the output, each moved once. For comparison, at 8 operations a pair
+    # (3 multiply-adds, a subtract, a compare): the staged pairs (which
+    # depend on the design) and those of a full scan.
+    nbytes = Vq * (16 + 1 + 4) + Vr * 16 + index.cell_start.shape[0] * 4
+    bound, by = _bound_ms(0, PEAK_F32, nbytes)
+    staged_bound, _ = _bound_ms(pairs * 8, PEAK_F32, 0)
+    scan_bound, _ = _bound_ms(float(nq) * float(rm.sum()) * 8, PEAK_F32, 0)
+    g = index.geo.tolist()
+    log(f"C2 nn_match_tiled, {label}: {Vq} queries ({nq} valid) x {Vr} refs,"
+        f" exact against C1 (all valid queries), its plain version (rows "
+        f"staged too) and the plain scan ({rows.shape[0]} queries); index "
+        f"cell {g[3]}, grid {g[4:7]}, {g[7]} items; on the card: index and "
+        f"tile order {index_ms:.4f} ms, kernel {ms:.4f} ms, both "
+        f"{total_ms:.4f} ms ({host_total_ms:.4f} ms paced by the host); "
+        f"C1 index {c1_index_ms:.4f} ms (its "
+        f"host reads wait for the card), kernel {c1_ms:.4f} ms; "
+        f"{float(staged.double().sum()) / nt:.1f} rows staged per tile, "
+        f"{pairs / max(nq, 1):.1f} pairs per valid query; bound "
+        f"{bound:.4f} ms ({by}); the staged pairs' operations "
+        f"{staged_bound:.4f} ms, a full scan's {scan_bound:.4f} ms; plain "
+        f"version on the subset {plain_ms:.2f} ms")
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None, index_ms=index_ms,
+                with_index_ms=total_ms, host_paced_with_index_ms=host_total_ms,
+                c1_ms=c1_ms, c1_index_ms=c1_index_ms,
+                pairs_per_query=pairs / max(nq, 1), pairs=pairs,
+                scan_pairs=float(nq) * float(rm.sum()),
+                staged_bound_ms=staged_bound)
 
 
 def check_chamfer(dev):
@@ -1322,28 +1399,18 @@ def check_small_refine_train(cfg_mod, dev):
                                  f"{kind} of the refiner's step")
 
 
-def run_refine(cfg, kernels, dev):
-    """The refiner at full width: `MinkUNet` with 18 output channels, 180k
-    jittered points, 1.08M upsampled points against a 360k-point target.
-    First C2 at that shape, both directions, on the clouds of this very
-    step (the model's eval forward, quantized and sorted as
-    `nn_indices_grid` does); then TRAIN_WARMUP + TRAIN_STEPS optimizer
-    steps. Returns (C2's results, the kernels' launches over the timed
-    steps)."""
+def refine_inputs(cfg, dev):
+    """The refiner's task (`MinkUNet` with 18 output channels, full width)
+    and batch: 180k jittered points and a 360k-point target."""
     import torch
     from lidiff_tpu_torch import config as cfg_mod
     from lidiff_tpu_torch.models import refine
-    from lidiff_tpu_torch.models.blocks import SparseConv
-    from lidiff_tpu_torch.ops import chamfer, knn
-    cuda = dev == "cuda"
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
     n = N_PART * TILE
     # dense clouds without tiled duplicates, as the aggregated dataset
-    # gives after its 0.1 m voxel-unique step (copies would make every
-    # window bound zero and flatter the pruning); every level gets the full
-    # point count, as the diffusion phases do: no voxel is dropped
+    # gives after its 0.1 m voxel-unique step (copies would put every
+    # target point's twin at distance 0 and flatter the match); every level
+    # gets the full point count, as the diffusion phases do: no voxel is
+    # dropped
     rcfg = cfg_mod.finalize_config(make_refine_cfg(
         n, cfg["model"]["cr"], REFINE_UP, {"capacity_fractions": [1.0] * 5}))
     task = refine.RefineTask(rcfg, device=dev, compute_dtype=torch.bfloat16,
@@ -1356,26 +1423,56 @@ def run_refine(cfg, kernels, dev):
         f"level {[int(l.geom.num) for l in pyr.levels]}; overflow {ovf}")
     if any(ovf):
         raise AssertionError("capacity overflow on the refiner's input")
-    del pyr
+    return rcfg, task, noisy, gt
 
-    # ---- 8. C2 at the chamfer's shape ----
+
+def chamfer_match_inputs(task, noisy, gt):
+    """The two matches of the refiner's grid chamfer on the model's eval
+    forward, quantized as `nn_indices_grid` does (the references sorted):
+    ((queries, mask, refs, mask) upsampled -> target, the same target ->
+    upsampled)."""
+    from lidiff_tpu_torch.ops import chamfer
     up = task.upsample(noisy, task.forward(noisy)).reshape(-1, 3)
     res = chamfer._adaptive_res([(up, None), (gt[0], None)])
-    xs, xm, _ = chamfer.grid_sort(up, None, res, 1)
-    ys, ym, _ = chamfer.grid_sort(gt[0], None, res, 1)
-    fwd = check_c2_case(knn, "chamfer, upsampled -> target", xs, xm, ys, ym,
-                        1, c1_iters=2)
-    back = check_c2_case(knn, "chamfer, target -> upsampled", ys, ym, xs, xm,
-                         1, c1_iters=2)
-    if cuda and (fwd["kept"] >= 1.0 or back["kept"] >= 1.0):
-        raise AssertionError("the intervals prune nothing at the chamfer's "
-                             "shape")
-    c2 = {"C2": {**fwd["C2"], "ms_reverse": back["C2"]["ms"],
-                 "prolog_ms_reverse": back["C2"]["prolog_ms"],
-                 "c1_ms_reverse": back["C2"]["c1_ms"],
-                 "kept_share_reverse": back["kept"]},
-          "C2w": {**fwd["C2w"], "ms_reverse": back["C2w"]["ms"]}}
-    del up, xs, xm, ys, ym, fwd, back
+    x, xm = chamfer.grid_coords(up, None, res, 1)
+    y, ym = chamfer.grid_coords(gt[0], None, res, 1)
+    xs, _, _ = chamfer.grid_sort(up, None, res, 1)
+    ys, _, _ = chamfer.grid_sort(gt[0], None, res, 1)
+    return (x, xm, ys, ym), (y, ym, xs, xm)
+
+
+def run_refine(cfg, kernels, dev):
+    """The refiner at full width: `MinkUNet` with 18 output channels, 180k
+    jittered points, 1.08M upsampled points against a 360k-point target.
+    First C2 at that shape, both directions, on the clouds of this very
+    step (`chamfer_match_inputs`); then TRAIN_WARMUP + TRAIN_STEPS
+    optimizer steps. Returns (C2's results, the kernels' launches over the
+    timed steps)."""
+    import torch
+    from lidiff_tpu_torch.models import refine
+    from lidiff_tpu_torch.models.blocks import SparseConv
+    from lidiff_tpu_torch.ops import chamfer, knn
+    cuda = dev == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    n = N_PART * TILE
+    rcfg, task, noisy, gt = refine_inputs(cfg, dev)
+
+    # ---- 8. C2 at the chamfer's shape ----
+    fwd_in, back_in = chamfer_match_inputs(task, noisy, gt)
+    fwd = check_c2_case(knn, "chamfer, upsampled -> target", *fwd_in, 1,
+                        c1_iters=2)
+    back = check_c2_case(knn, "chamfer, target -> upsampled", *back_in, 1,
+                         c1_iters=2)
+    if cuda and any(c["pairs"] >= 0.01 * c["scan_pairs"]
+                    for c in (fwd, back)):
+        raise AssertionError("C2's tiles stage more than 1% of a full "
+                             "scan's pairs at the chamfer's shape")
+    c2 = {"C2": {**fwd, **{k + "_reverse": back[k] for k in (
+        "ms", "index_ms", "with_index_ms", "host_paced_with_index_ms",
+        "c1_ms", "c1_index_ms", "pairs_per_query")}}}
+    del fwd_in, back_in, fwd, back
 
     # ---- 9. training steps ----
     def instrument(mark):
@@ -1423,7 +1520,7 @@ def run_refine(cfg, kernels, dev):
         task, rcfg, {"pcd_noise": noisy, "pcd_full": gt}, None, kernels, dev,
         "refiner training", "cd_loss",
         {"A3": convs, "A2": convs - 1, "A1": 2 * convs - 1, "B1": 5, "C2": 2,
-         "C2w": 2, "C1": 0},
+         "C1": 0},
         lambda m: f"cd_loss {float(m['cd_loss']):.4f}", instrument)
     return c2, launches
 
@@ -1756,9 +1853,8 @@ def run_eval_clis(dev: str, tree: str, kernels) -> None:
 
 _CATEGORIES = (("A3 conv3_columns_dw", ("conv3_columns_dw",)),
                ("A1 conv3_columns", ("conv3_columns",)),
-               ("B1 kmap3_columns", ("kmap3_columns",)),
-               ("C2 nn_match_pruned", ("nn_match_pruned",
-                                       "nn_window_bound")),
+               ("B1 kmap3_columns", ("kmap3_",)),
+               ("C2 nn_match_tiled", ("nn_match_tiled",)),
                ("C1 nn_match", ("nn_match",)),
                ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                   "nvjet")),
@@ -1864,6 +1960,8 @@ def main(argv=None) -> int:
         log_ptxas(name, rep)
 
     res, paths = run(args.steps)
+    # the plan's taps: a second entry point of B1's source
+    res["B1"]["taps_launches"] = paths["sampling"]["B1 taps"]
     # kernel: (source, TPU kernel it replaces, the path its count is from)
     sources = {
         "A1": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:840",
@@ -1875,27 +1973,23 @@ def main(argv=None) -> int:
                "training"),
         "A3": ("conv3_columns_dw", "lidiff_tpu/ops/pallas_conv.py:568",
                "training"),
-        "C2": ("nn_match_pruned", "lidiff_tpu/ops/pallas_knn.py:403",
+        "C2": ("nn_match_tiled", "lidiff_tpu/ops/pallas_knn.py:403",
                "refiner training"),
-        # the prolog's distance bound: XLA code in the JAX package, a
-        # kernel of the same source here
-        "C2w": ("nn_match_pruned", "lidiff_tpu/ops/pallas_knn.py:198",
-                "refiner training"),
         "A4": ("conv3_columns_q",
                "lidiff_tpu/ops/pallas_conv.py:840 (quant=True)",
                "int8 sampling")}
     for path, names in (
-            ("sampling", ("A1", "B1", "C1")),
-            ("int8 sampling", ("A1", "A4", "B1", "C1")),
-            ("training", ("A1", "A2", "A3", "B1", "C1")),
-            ("refiner training", ("A1", "A2", "A3", "B1", "C2", "C2w")),
-            ("pipeline", ("A4", "B1", "C1"))):
+            ("sampling", ("A1", "B1", "B1 taps", "C1")),
+            ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1")),
+            ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1")),
+            ("refiner training", ("A1", "A2", "A3", "B1", "B1 taps", "C2")),
+            ("pipeline", ("A4", "B1", "B1 taps", "C1"))):
         for n in names:
             if paths[path][n] == 0:
                 raise AssertionError(f"kernel {n} was not launched on the "
                                      f"{path} path")
     line = {"kernels": [
-        {"name": f"{n} {NAMES.get(n, src)}", "route": "cuda",
+        {"name": f"{n} {src}", "route": "cuda",
          "source": f"lidiff_tpu_torch/csrc/{src}.cu", "replaces": rep,
          "launches": paths[path][n], **res[n]}
         for n, (src, rep, path) in sources.items()]}

@@ -8,15 +8,18 @@ without differentiating through an argmin. Two index passes:
 
 * "exact": a blocked running argmin of |t|^2 - 2 q.t over target tiles,
   O(N * M) pairs in float32 GEMMs.
-* "grid": both clouds are quantized to an integer grid, lex-sorted by packed
-  key, and matched by the pruned voxel matcher (`ops.knn.nn_match_pruned`,
-  kernel C2 on the card). The pick is the argmin of voxel-centre distances,
-  so it can differ from the true neighbour only among targets within
-  2 * sqrt(3) * res of it; the loss gathers true coordinates, which bounds
-  its error by O(res * d). By default the grid step is adaptive: the joint
-  extent of both (masked) clouds is scaled to +-(COORD_LIM - 1), so the
-  error is relative to the extent. LIDIFF_CHAMFER_RES (or `grid_res`) sets
-  an absolute step instead.
+* "grid": both clouds are quantized to an integer grid, the target
+  lex-sorted by packed key, and matched by the tiled voxel matcher
+  (`ops.knn.nn_match_tiled`: a grid index of the sorted target, then kernel
+  C2 on the card, whose tiles of queries search the index's cells around
+  them). Ties go to the lowest row of the sorted target, as in the JAX
+  package, which matches the sorted arrays too. The pick is the argmin of
+  voxel-centre distances, so it can differ from the true neighbour only
+  among targets within 2 * sqrt(3) * res of it; the loss gathers true
+  coordinates, which bounds its error by O(res * d). By default the grid
+  step is adaptive: the joint extent of both (masked) clouds is scaled to
+  +-(COORD_LIM - 1), so the error is relative to the extent.
+  LIDIFF_CHAMFER_RES (or `grid_res`) sets an absolute step instead.
 
 `method="auto"` (the default) takes "grid" from 2^26 pairs per item up and
 "exact" below; LIDIFF_CHAMFER=exact|grid overrides it.
@@ -29,7 +32,7 @@ import os
 import torch
 
 from lidiff_tpu_torch.ops import keys as K
-from lidiff_tpu_torch.ops.knn import nn_match_pruned
+from lidiff_tpu_torch.ops.knn import nn_match_tiled
 
 _BIG = 1e30
 _FAR = 1e15               # coordinates of a masked-out target
@@ -91,13 +94,12 @@ def _adaptive_res(clouds_and_masks) -> torch.Tensor:
     return m.clamp(min=1e-9) / _grid_lim()
 
 
-def grid_sort(points: torch.Tensor, mask: torch.Tensor | None, res,
-              n_batch: int = 1):
+def grid_coords(points: torch.Tensor, mask: torch.Tensor | None, res,
+                n_batch: int = 1):
     """Quantize `points` [B*N, 3] (flattened batch-major: row i belongs to
-    item i * n_batch // rows) with step `res` and lex-sort by packed key.
-    Returns (coords [B*N, 4] int32 (batch, x, y, z), mask [B*N] bool, perm
-    [B*N] int64), all in sorted order: sorted row k is input row perm[k].
-    Coordinates beyond the grid are clamped to its edge."""
+    item i * n_batch // rows) with step `res`. Returns (coords [B*N, 4]
+    int32 (batch, x, y, z), mask [B*N] bool), in input order. Coordinates
+    beyond the grid are clamped to its edge."""
     n = points.shape[0]
     dev = points.device
     batch = (torch.arange(n, device=dev) * n_batch) // n
@@ -106,17 +108,25 @@ def grid_sort(points: torch.Tensor, mask: torch.Tensor | None, res,
     ci = torch.round(points / res).to(torch.int32).clamp(-lim, lim)
     if mask is None:
         mask = torch.ones(n, dtype=torch.bool, device=dev)
-    key, _ = K.pack(batch, ci)
+    return torch.cat([batch[:, None].to(torch.int32), ci], dim=1), mask
+
+
+def grid_sort(points: torch.Tensor, mask: torch.Tensor | None, res,
+              n_batch: int = 1):
+    """`grid_coords`, lex-sorted by packed key. Returns (coords, mask, perm
+    [B*N] int64), all in sorted order: sorted row k is input row
+    perm[k]."""
+    coords, mask = grid_coords(points, mask, res, n_batch)
+    key, _ = K.pack(coords[:, 0], coords[:, 1:])
     _, perm = torch.sort(key, stable=True)
-    coords = torch.cat([batch[perm, None].to(torch.int32), ci[perm]], dim=1)
-    return coords, mask[perm], perm
+    return coords[perm], mask[perm], perm
 
 
 def nn_indices_grid(query: torch.Tensor, target: torch.Tensor,
                     target_mask: torch.Tensor | None = None,
                     query_mask: torch.Tensor | None = None,
                     res=None, n_batch: int = 1) -> torch.Tensor:
-    """Near-1-NN indices through the pruned voxel matcher.
+    """Near-1-NN indices through the tiled voxel matcher.
 
     query [B*N, 3] and target [B*M, 3] float, flattened batch-major.
     Returns [B*N] int64 indices into the flattened target (same item
@@ -126,17 +136,16 @@ def nn_indices_grid(query: torch.Tensor, target: torch.Tensor,
     with torch.no_grad():
         if res is None:
             res = _adaptive_res([(query, query_mask), (target, target_mask)])
-        # both sides lex-sorted: the matcher's pruning wants sorted refs
-        # and queries whose tiles are compact in space
+        # the target lex-sorted, as the JAX package matches it: the index
+        # is built over the sorted target, so a tie goes to its lowest
+        # sorted row (an index over the unsorted target would break ties
+        # by another row). A query's match does not depend on where the
+        # query stands, so the queries keep their order (the JAX package
+        # sorts them too; the matcher orders them by cell itself).
         t_sorted, tm, t_perm = grid_sort(target, target_mask, res, n_batch)
-        q_sorted, qm, q_perm = grid_sort(query, query_mask, res, n_batch)
-        idx_sorted = nn_match_pruned(q_sorted, qm, t_sorted, tm,
-                                     n_batch=n_batch)
-        # back to the callers' orders
-        out = torch.empty(query.shape[0], dtype=torch.int64,
-                          device=query.device)
-        out[q_perm] = t_perm[idx_sorted.long()]
-        return out
+        q, qm = grid_coords(query, query_mask, res, n_batch)
+        idx = nn_match_tiled(q, qm, t_sorted, tm, n_batch=n_batch)
+        return t_perm[idx.long()]
 
 
 def chamfer_distance(x: torch.Tensor, y: torch.Tensor,

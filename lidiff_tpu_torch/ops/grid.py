@@ -7,9 +7,12 @@ original-resolution units at every level (multiples of the stride).
 
 The 27-tap column kernel map is kernel B1 (`csrc/kmap3_columns.cu`) for
 CUDA tensors and its plain PyTorch version, `kmap3_columns_plain`, for CPU
-tensors. Each map carries the tile plan of the column conv's bf16 kernel
-(`tile_plan`), and a level used as a conditioning bank its 1-NN index
-(`VoxelGeom.nn_index`), each built on first use and kept.
+tensors; both also give the sort key of the map's tile plan (`plan_keys`).
+Each map carries the tile plan of the column conv's bf16 kernel
+(`ColumnKernelMap.plan`: a sort of that key, then the taps of each tile,
+B1's `kmap3_tile_taps` on the card), and a level used as a conditioning
+bank its 1-NN index (`VoxelGeom.nn_index`), each built on first use and
+kept.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ class VoxelGeom:
 
 
 TILE_ROWS = 64   # rows of one tile of the column conv's bf16 kernel
+NO_TAP = 1 << 27  # plan key of a row that hits no tap: it sorts last
 
 
 @dataclass
@@ -82,9 +86,18 @@ def hit_patterns(hit: torch.Tensor, mask: torch.Tensor | None = None):
     return pattern
 
 
+def plan_keys(hit: torch.Tensor, mask: torch.Tensor | None = None):
+    """[V] int32: the tile plan's sort key, the hit pattern read as an
+    integer (bit k = tap k), 1 << 27 for a row that hits nothing. Kernel
+    B1 writes it beside the map."""
+    pattern = hit_patterns(hit, mask)
+    return torch.where(pattern == 0, NO_TAP, pattern)
+
+
 def tile_taps(pattern: torch.Tensor):
     """[ceil(V / 64)] int32: the OR of the hit patterns of each 64
-    consecutive rows (an OR tree of six steps)."""
+    consecutive rows (an OR tree of six steps): the plain version of B1's
+    `kmap3_tile_taps`."""
     V = pattern.shape[0]
     T = -(-V // TILE_ROWS)
     taps = torch.zeros(T * TILE_ROWS, dtype=torch.int32,
@@ -96,17 +109,21 @@ def tile_taps(pattern: torch.Tensor):
     return taps[:, 0].contiguous()
 
 
+def plan_from_keys(key: torch.Tensor) -> TilePlan:
+    """The tile plan of a map from its `plan_keys`: `order` is a stable
+    sort of the rows by their 27-bit hit pattern read as an integer (bit k
+    = tap k, so tap 26 is the most significant), rows that hit nothing
+    last; stability keeps the key order, and so the locality of the
+    gathers, within a pattern. `tile_taps` is the OR of the patterns of
+    each 64 consecutive rows of `order` (`kmap3_tile_taps`)."""
+    sorted_key, order = torch.sort(key, stable=True)
+    return TilePlan(order=order.to(torch.int32),
+                    tile_taps=kmap3_tile_taps(sorted_key))
+
+
 def tile_plan(hit: torch.Tensor, mask: torch.Tensor | None = None):
-    """The tile plan of a map: `order` is a stable sort of the rows by
-    their 27-bit hit pattern read as an integer (bit k = tap k, so tap 26
-    is the most significant), rows that hit nothing last; stability keeps
-    the key order, and so the locality of the gathers, within a pattern.
-    `tile_taps` is the OR of the patterns of each 64 consecutive rows of
-    `order`. Tensor ops on the map's device: one sort, one OR tree."""
-    pattern = hit_patterns(hit, mask)
-    key = torch.where(pattern == 0, 1 << 27, pattern)
-    order = torch.sort(key, stable=True).indices.to(torch.int32)
-    return TilePlan(order=order, tile_taps=tile_taps(pattern[order.long()]))
+    """The tile plan of a map given only its hits (`plan_from_keys`)."""
+    return plan_from_keys(plan_keys(hit, mask))
 
 
 @dataclass
@@ -118,14 +135,15 @@ class ColumnKernelMap:
     col_idx: torch.Tensor  # [V, 9] int32
     hit: torch.Tensor      # [V, 27] bool
     nvalid: torch.Tensor   # [] int32, valid rows (they come first)
+    plan_key: torch.Tensor  # [V] int32, the tile plan's key (`plan_keys`)
     _plan: TilePlan | None = field(default=None, repr=False, compare=False)
 
     def plan(self) -> TilePlan:
         """The map's tile plan, built on first use and kept: every conv
-        over the map shares it. The hits of invalid rows are 0, so no mask
-        is needed."""
+        over the map shares it: a sort of the plan key B1 wrote beside the
+        map."""
         if self._plan is None:
-            self._plan = tile_plan(self.hit)
+            self._plan = plan_from_keys(self.plan_key)
         return self._plan
 
 
@@ -262,14 +280,18 @@ def up_maps(fine: VoxelGeom, child2parent: torch.Tensor):
 _kmap3_kernel = native.Kernel(
     "kmap3_columns", "kmap3_columns",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
+_taps_kernel = native.Kernel(
+    "kmap3_columns", "kmap3_tile_taps",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
 def kmap3_columns_plain(key: torch.Tensor, coords: torch.Tensor,
                         mask: torch.Tensor, stride: int):
     """Plain PyTorch version of kernel B1; the same function as
     lidiff_tpu/ops/grid.py:309-354. Returns (col_idx [V, 9] int32,
-    hit [V, 27] bool)."""
+    hit [V, 27] bool, the tile plan's key [V] int32 (`plan_keys`))."""
     s = stride
     V = key.shape[0]
     dev = key.device
@@ -290,7 +312,7 @@ def kmap3_columns_plain(key: torch.Tensor, coords: torch.Tensor,
     m2 = key[p2] == q + 2 * s
     ok = mask[:, None] & q_valid
     hit = torch.stack([m0 & ok, m1 & ok, m2 & ok], dim=2).reshape(V, 27)
-    return p.to(torch.int32), hit
+    return p.to(torch.int32), hit, plan_keys(hit)
 
 
 def kmap3_columns(key: torch.Tensor, coords: torch.Tensor,
@@ -310,16 +332,35 @@ def kmap3_columns(key: torch.Tensor, coords: torch.Tensor,
     native.check_cuda("kmap3_columns", key, coords, mask)
     col_idx = torch.empty(V, 9, dtype=torch.int32, device=key.device)
     hit = torch.empty(V, 27, dtype=torch.bool, device=key.device)
+    plan_key = torch.empty(V, dtype=torch.int32, device=key.device)
     _kmap3_kernel(native.ptr(key), native.ptr(coords), native.ptr(mask), V,
                   int(stride), native.ptr(col_idx), native.ptr(hit),
-                  native.stream(key.device))
-    return col_idx, hit
+                  native.ptr(plan_key), native.stream(key.device))
+    return col_idx, hit, plan_key
+
+
+def kmap3_tile_taps(sorted_key: torch.Tensor):
+    """The taps of each 64-row tile of a plan from its sorted plan keys [V]
+    int32: B1's `kmap3_tile_taps` on a CUDA tensor, its plain version
+    (`tile_taps` of the patterns) on a CPU one. [ceil(V / 64)] int32."""
+    if sorted_key.device.type == "cpu":
+        return tile_taps(sorted_key & (NO_TAP - 1))
+    V = sorted_key.shape[0]
+    if sorted_key.dtype != torch.int32 or sorted_key.dim() != 1 or V == 0:
+        raise ValueError("kmap3_tile_taps: want [V] int32 plan keys")
+    native.check_cuda("kmap3_tile_taps", sorted_key)
+    taps = torch.empty(-(-V // TILE_ROWS), dtype=torch.int32,
+                       device=sorted_key.device)
+    _taps_kernel(native.ptr(sorted_key), V, native.ptr(taps),
+                 native.stream(sorted_key.device))
+    return taps
 
 
 def build_kmap3_columns(geom: VoxelGeom) -> ColumnKernelMap:
-    col_idx, hit = kmap3_columns(geom.key, geom.coords, geom.mask,
-                                 geom.stride)
-    return ColumnKernelMap(col_idx=col_idx, hit=hit, nvalid=geom.num)
+    col_idx, hit, plan_key = kmap3_columns(geom.key, geom.coords, geom.mask,
+                                           geom.stride)
+    return ColumnKernelMap(col_idx=col_idx, hit=hit, nvalid=geom.num,
+                           plan_key=plan_key)
 
 
 def build_pyramid(points: torch.Tensor, resolution: float,

@@ -17,15 +17,16 @@ the best one. `nn_grid_plain` is the same search in tensor code. A bank
 keeps its index on its `VoxelGeom` (`VoxelGeom.nn_index`), so a
 completion builds it once for all its solver steps and levels.
 
-`nn_match_pruned` computes the same function for large, lex-sorted inputs
-(the grid chamfer's 1.08M x 360k matches): each tile of QTILE queries scans
-only the contiguous interval of reference rows that an exact key-gap bound
-cannot rule out. `prune_intervals` finds the intervals (kernel
-`nn_window_bound` plus a little tensor code), kernel C2 `nn_match_pruned`
-of `csrc/nn_match_pruned.cu` scans them; `nn_match_pruned_plain` and
-`window_bound_plain` are their plain versions. Every distance and bound is
-an exact integer, so the result equals `nn_match` on every valid query,
-sorted input or not (unsorted input only prunes less).
+`nn_match_tiled` computes the same function for the grid chamfer's large
+matches (1.08M x 360k and back) without a host read: `build_tile_index`
+builds C1's layout over the references with the grid kept on the device
+(`TileIndex`), `tile_order` orders the queries by the index cell they lie
+in, and kernel C2 (`csrc/nn_match_tiled.cu`) lets each tile of QTILE
+consecutive queries in that order search the cells around its box
+together, in shells, staging their rows through shared memory.
+`nn_tiles_plain` is the same tile search in tensor code, rows staged
+included. Every distance and stop test is an exact integer, so the result
+equals `nn_match` on every valid query; a tie goes to the lowest row.
 """
 
 from __future__ import annotations
@@ -35,16 +36,10 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
-from lidiff_tpu_torch.ops import keys as K
 from lidiff_tpu_torch.ops import native
 
 _BIG = 1e18
-QTILE = 256           # queries per interval (the kernel's block size)
-RBLK = 512            # reference rows per prunable block (read at call time)
-UWND_MIN, UWND_MAX = 512, 4096   # reference rows of the upper-bound window
-NO_BOUND = 2 ** 31 - 1   # window bound of a query with no valid ref in it
 
 _nn_kernel = native.Kernel(
     "nn_match", "nn_match",
@@ -53,16 +48,6 @@ _nn_kernel = native.Kernel(
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 _nn_kernel.scans = 0  # of its launches, those over a one-cell-per-item index
-_bound_kernel = native.Kernel(
-    "nn_match_pruned", "nn_window_bound",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-_pruned_kernel = native.Kernel(
-    "nn_match_pruned", "nn_match_pruned",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p])
 
 
 @dataclass
@@ -272,14 +257,35 @@ def match_features(q_coords, q_mask, r_coords, r_mask, r_feats,
 
 
 # ---------------------------------------------------------------------------
-# pruned 1-NN: survivor intervals (prolog) + interval scan (kernel C2)
+# kernel C2: tiles of queries searching a grid index of the references
 # ---------------------------------------------------------------------------
 
-_NO_PRUNE = 1 << 62      # "no bound" as an int64 squared distance
-_HI_INF = 1 << 30        # beyond every hi key; its square stays below 2^62
+QTILE = 32           # queries per tile: one warp of the kernel
+_FAR = 1 << 20       # a gap beyond every grid: no cell left on that side
+_MAX_CELL = 4096     # a cell this wide holds every |c| <= 2047 on its axis
+
+_tile_kernel = native.Kernel(
+    "nn_match_tiled", "nn_match_tiled",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 
-def _check_pruned_inputs(name, q_coords, q_mask, r_coords, r_mask):
+@dataclass
+class TileIndex:
+    """Kernel C2's index of the reference rows: `NNIndex`'s layout, built
+    without a host read. Every row is sorted in, the valid ones by cell
+    (ascending row order within a cell), the others after them; the grid
+    stays on the device in `geo`, and it has at most `cap` cells, a bound
+    known from the shapes (cells past the grid's own count are empty)."""
+    pts: torch.Tensor         # [Vr, 4] int32: x, y, z, row
+    cell_start: torch.Tensor  # [cap + 1] int32
+    geo: torch.Tensor         # [8] int32: lo x, y, z; cell; nx, ny, nz; items
+    cap: int
+    batched: bool
+
+
+def _check_match_inputs(name, q_coords, q_mask, r_coords, r_mask):
     Vq, Vr = q_coords.shape[0], r_coords.shape[0]
     if q_coords.dtype != torch.int32 or r_coords.dtype != torch.int32 \
             or r_mask.dtype != torch.bool or q_mask.dtype != torch.bool:
@@ -292,209 +298,239 @@ def _check_pruned_inputs(name, q_coords, q_mask, r_coords, r_mask):
         raise ValueError(f"{name}: unsupported device {q_coords.device}")
 
 
-def window_rows(n_refs: int) -> int:
-    """Rows of the upper-bound window for `n_refs` reference rows: a 64th
-    of them in steps of 512, between UWND_MIN and UWND_MAX. A wider window
-    costs queries x rows distance tests and gives tighter bounds, so
-    shorter intervals; a 64th keeps its cost near 1.6% of a full scan."""
-    return min(UWND_MAX, max(UWND_MIN, n_refs // 64 // 512 * 512))
+def build_tile_index(r_coords, r_mask, n_batch: int = 0) -> TileIndex:
+    """The references' `TileIndex`, in tensor ops on their device.
 
-
-def window_bound_plain(q_coords, q_mask, r_coords, r_mask, win_start,
-                       window: int, batched: bool = True,
-                       tile: int = QTILE, chunk: int = 16):
-    """Plain PyTorch version of kernel `nn_window_bound`, in int64.
-
-    Per tile of `tile` queries: the largest, over its valid queries, of the
-    squared distance to the nearest valid same-batch reference among rows
-    [win_start, win_start + window) -- an upper bound on every such query's
-    true 1-NN distance. NO_BOUND where a valid query finds no such row; 0
-    for a tile without valid queries. Returns [tiles] int32."""
-    Vq = q_coords.shape[0]
-    nt = -(-Vq // tile)
-    pad = nt * tile - Vq
-    q = F.pad(q_coords.long(), (0, 0, 0, pad)).reshape(nt, tile, 4)
-    qm = F.pad(q_mask, (0, pad)).reshape(nt, tile)
-    r = r_coords.long()
-    rows = torch.arange(window, device=q_coords.device)
-    out = torch.empty(nt, dtype=torch.int32, device=q_coords.device)
-    for s in range(0, nt, chunk):
-        idx = win_start[s:s + chunk].long()[:, None] + rows       # [c, U]
-        w, qq = r[idx], q[s:s + chunk]                  # [c, U, 4], [c, T, 4]
-        d = ((qq[:, :, None, 1:] - w[:, None, :, 1:]) ** 2).sum(-1)
-        bad = ~r_mask[idx][:, None, :]
-        if batched:
-            bad = bad | (qq[:, :, None, 0] != w[:, None, :, 0])
-        u2 = d.masked_fill(bad, NO_BOUND).min(dim=2).values       # [c, T]
-        u2 = u2.masked_fill(~qm[s:s + chunk], 0)
-        out[s:s + chunk] = u2.max(dim=1).values.to(torch.int32)
-    return out
-
-
-def window_bound(q_coords, q_mask, r_coords, r_mask, win_start,
-                 window: int, n_batch: int = 0):
-    """Kernel `nn_window_bound` on CUDA tensors (tiles of QTILE queries),
-    its plain version on CPU tensors."""
-    if q_coords.device.type == "cpu":
-        return window_bound_plain(q_coords, q_mask, r_coords, r_mask,
-                                  win_start, window, n_batch != 1)
-    Vq, Vr = q_coords.shape[0], r_coords.shape[0]
-    nt = -(-Vq // QTILE)
-    if win_start.dtype != torch.int32 or win_start.shape != (nt,) \
-            or not 0 < window <= Vr:
-        raise ValueError("window_bound: want one int32 window start per "
-                         "query tile and a window of at most Vr rows")
-    native.check_cuda("window_bound", q_coords, q_mask, r_coords, r_mask,
-                      win_start)
-    out = torch.empty(nt, dtype=torch.int32, device=q_coords.device)
-    _bound_kernel(native.ptr(q_coords), native.ptr(q_mask), Vq,
-                  native.ptr(r_coords), native.ptr(r_mask), Vr,
-                  native.ptr(win_start), window, int(n_batch != 1),
-                  native.ptr(out), native.stream(q_coords.device))
-    return out
-
-
-def window_starts(q_coords, r_coords, window: int):
-    """First row of each query tile's upper-bound window: the position of
-    the tile's first query (of QTILE) in the reference keys, a quarter
-    window back, kept in range. [tiles] int32. On unsorted rows the binary
-    search lands anywhere in range, which still gives a valid bound."""
+    Items: `n_batch` of them (batch ids in [0, n_batch); rows outside are
+    left out), one for n_batch == 1 (no batch compare); n_batch == 0 reads
+    the largest valid batch id back, the one host read. The cell is C1's
+    (`build_nn_index`: about one valid row per cell of the bounding box,
+    the least edge c with c^3 n >= its volume, here in exact integers),
+    widened where needed to keep the cells within cap = 2 Vr + items: the
+    least edge that meets both is found among all 4096 at once."""
+    dev = r_coords.device
     Vr = r_coords.shape[0]
-    r_key, _ = K.pack(r_coords[:, 0], r_coords[:, 1:])
-    first = q_coords[::QTILE]
-    a_key, _ = K.pack(first[:, 0], first[:, 1:])
-    pos = torch.searchsorted(r_key, a_key)
-    return (pos - window // 4).clamp(0, Vr - window).to(torch.int32)
+    batched = n_batch != 1
+    b = r_coords[:, 0] if batched else torch.zeros_like(r_coords[:, 0])
+    if n_batch >= 1:
+        items = n_batch
+    else:
+        b_lo, b_hi = torch.stack([torch.where(r_mask, b, 0).amin(),
+                                  torch.where(r_mask, b, -1).amax()]).tolist()
+        if b_lo < 0:
+            raise ValueError("build_tile_index: negative batch id")
+        items = max(b_hi + 1, 1)
+    cap = 2 * Vr + items
+    valid = r_mask & b.ge(0) & b.lt(items)
+    n = valid.sum()
+    xyz = r_coords[:, 1:]
+    # lo and -hi in one reduction; an empty index gets a one-voxel box
+    ends = torch.where(valid[:, None], torch.cat([xyz, -xyz], 1), _FAR) \
+        .amin(0)
+    ends = torch.where(n > 0, ends, 0)
+    lo = ends[:3]
+    ext = (-ends[3:] - lo + 1).long()
+    widths = torch.arange(1, _MAX_CELL + 1, device=dev)
+    cells = items * torch.div(ext + widths[:, None] - 1, widths[:, None],
+                              rounding_mode="floor").prod(1)
+    fits = (widths ** 3 * n.clamp(min=1) >= ext.prod() * items) \
+        & (cells <= cap)
+    cell = (~fits).sum() + 1
+    dims = torch.div(ext + cell - 1, cell, rounding_mode="floor")
+    cell32, d32 = cell.to(torch.int32), dims.to(torch.int32)
+    cxyz = torch.div(xyz - lo, cell32, rounding_mode="floor")
+    cid = ((b * d32[0] + cxyz[:, 0]) * d32[1] + cxyz[:, 1]) * d32[2] \
+        + cxyz[:, 2]
+    cid, order = torch.sort(torch.where(valid, cid, cap), stable=True)
+    pts = torch.cat([xyz[order], order[:, None].to(torch.int32)], 1)
+    start = torch.searchsorted(cid, torch.arange(
+        cap + 1, dtype=torch.int32, device=dev), out_int32=True)
+    geo = torch.cat([lo, cell32[None], d32,
+                     torch.full((1,), items, dtype=torch.int32, device=dev)])
+    return TileIndex(pts=pts.contiguous(), cell_start=start, geo=geo,
+                     cap=cap, batched=batched)
 
 
-def _hi_key(coords):
-    """batch * COORD_SPAN + (x + COORD_OFF): the high half of the packed
-    key. Within a batch item a difference of hi keys is a difference in x,
-    which no distance undercuts; across items it is at least COORD_SPAN
-    minus the x range, so far items prune themselves."""
-    return coords[:, 0].long() * K.COORD_SPAN + coords[:, 1].long() \
-        + K.COORD_OFF
+def _query_cells(q_coords, q_mask, index: TileIndex):
+    """Per query: its item, its cell (x, y, z; outside the grid for a
+    query beyond it) and whether it is searched (valid, its item in
+    range)."""
+    g = index.geo
+    b = q_coords[:, 0] if index.batched else \
+        torch.zeros_like(q_coords[:, 0])
+    live = q_mask & b.ge(0) & b.lt(g[7])
+    cell = torch.div(q_coords[:, 1:] - g[:3], g[3], rounding_mode="floor")
+    return b, cell, live
 
 
-def prune_intervals(q_coords, q_mask, r_coords, r_mask, n_batch: int = 0):
-    """Per tile of QTILE queries, the contiguous range of reference rows
-    that can hold a 1-NN of one of its valid queries: (start, cnt), [tiles]
-    int32 each, in rows, `start` a multiple of RBLK.
+def tile_order(q_coords, q_mask, index: TileIndex):
+    """The order in which kernel C2 takes the queries, QTILE at a time: by
+    the index cell they lie in (item first, x, y, z; a query beyond the
+    grid by the cell nearest to it), the searched queries before the
+    others; stable. In lex order a tile would be a slab one x wide and
+    long in y; in cell order it is a few cells. [Vq] int32."""
+    b, cell, live = _query_cells(q_coords, q_mask, index)
+    dims = index.geo[4:7]
+    cell = torch.minimum(cell.clamp(min=0), dims - 1)
+    key = ((b * dims[0] + cell[:, 0]) * dims[1] + cell[:, 1]) * dims[2] \
+        + cell[:, 2]
+    key = torch.where(live, key, index.cap)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
 
-    The argument of lidiff_tpu/ops/pallas_knn.py `_prune_mask`, in exact
-    integers (so without its float margin):
-      * u2[tile]: an upper bound on the squared 1-NN distance of every
-        valid query of the tile, from a window of `window_rows(Vr)` rows
-        around the position of the tile's first query in the reference
-        keys (`window_bound`); any in-range window gives a valid bound;
-      * gap[tile, block]: the distance between the tile's and the block's
-        ranges of the hi key, a lower bound on the distance of every
-        (query, row) pair of the two;
-      * a block survives iff gap^2 <= u2: a row of a block with
-        gap^2 > u2 is strictly farther than a row of the window, so it is
-        no argmin, ties included.
-    The interval runs from the first to the last surviving block (a
-    superset of the survivors: exact for unsorted input too), cnt = 0 where
-    no block survives (a tile without valid queries). With fewer than 3
-    blocks or fewer than UWND_MIN rows nothing is pruned: every tile gets
-    all rows, as the JAX package then runs its unpruned grid."""
-    _check_pruned_inputs("prune_intervals", q_coords, q_mask, r_coords,
-                         r_mask)
-    Vq, Vr = q_coords.shape[0], r_coords.shape[0]
+
+def _shell_rows(start, base, dims, box0, box1, r: int, inner: bool):
+    """Index rows of the cells of item `base` (its first cell) that lie in
+    the box [box0, box1] grown by r and not in it grown by r - 1 (not
+    when `inner` is False: nothing of it is in the grid), both cut to the
+    grid. A column (x, y) gives one run of cells along z, or two where it
+    crosses the inner box."""
+    dev = start.device
+    _, ny, nz = dims
+    a0 = [max(v - r, 0) for v in box0]
+    a1 = [min(v + r, d - 1) for v, d in zip(box1, dims)]
+    xs = torch.arange(a0[0], a1[0] + 1, device=dev)
+    ys = torch.arange(a0[1], a1[1] + 1, device=dev)
+    x, y = (t.reshape(-1) for t in torch.meshgrid(xs, ys, indexing="ij"))
+    col = base + (x * ny + y) * nz
+    z0 = torch.full_like(x, a0[2])
+    z1 = torch.full_like(x, a1[2])
+    runs = [(z0, z1)]
+    if inner:
+        b0 = [max(v - r + 1, 0) for v in box0]
+        b1 = [min(v + r - 1, d - 1) for v, d in zip(box1, dims)]
+        cross = (x >= b0[0]) & (x <= b1[0]) & (y >= b0[1]) & (y <= b1[1])
+        runs = [(z0, torch.where(cross, b0[2] - 1, z1)),
+                (torch.where(cross, b1[2] + 1, z1 + 1), z1)]
+    s = torch.cat([start[col + za] for za, zb in runs])
+    e = torch.cat([start[col + zb + 1] for za, zb in runs])
+    n = e - s                             # a run z0 > z1 is one past: 0
+    first = torch.repeat_interleave(s - (torch.cumsum(n, 0) - n), n)
+    return first + torch.arange(int(n.sum()), device=dev)
+
+
+def nn_tiles_plain(q_coords, q_mask, index: TileIndex, order, tiles=None,
+                   chunk: int = 8192, keep_rows: bool = False):
+    """Plain version of kernel C2's tile search, in tensor code on any
+    device: the same tiles of `order`, groups of a tile's queries (one per
+    item and cell x), boxes, shells and stop rule, and the lexicographic
+    (distance, row) minimum. `tiles`: the tiles to search (all by default;
+    the other queries get 0). Returns (idx [Vq] int32, staged [tiles]
+    int32: the index rows each tile staged), and with `keep_rows` a list
+    of those rows (positions in `index.pts`) per tile."""
     dev = q_coords.device
-    tile, block = QTILE, RBLK
-    nt, nr = -(-Vq // tile), -(-Vr // block)
-    if nr < 3 or Vr < UWND_MIN:
-        return (torch.zeros(nt, dtype=torch.int32, device=dev),
-                torch.full((nt,), Vr, dtype=torch.int32, device=dev))
-    window = window_rows(Vr)
-    win_start = window_starts(q_coords, r_coords, window)
-    u2 = window_bound(q_coords, q_mask, r_coords, r_mask, win_start, window,
-                      n_batch).long()
-    u2 = torch.where(u2 == NO_BOUND, _NO_PRUNE, u2)
-
-    q_hi = F.pad(_hi_key(q_coords), (0, nt * tile - Vq)).reshape(nt, tile)
-    qm = F.pad(q_mask, (0, nt * tile - Vq)).reshape(nt, tile)
-    th0 = q_hi.masked_fill(~qm, _HI_INF).min(dim=1).values
-    th1 = q_hi.masked_fill(~qm, -_HI_INF).max(dim=1).values
-    # min and max (not first and last): right for unsorted rows too
-    r_hi = _hi_key(r_coords)
-    bh0 = F.pad(r_hi, (0, nr * block - Vr), value=_HI_INF) \
-        .reshape(nr, block).min(dim=1).values
-    bh1 = F.pad(r_hi, (0, nr * block - Vr), value=-_HI_INF) \
-        .reshape(nr, block).max(dim=1).values
-    gap = torch.maximum(bh0[None, :] - th1[:, None],
-                        th0[:, None] - bh1[None, :]).clamp_(min=0)
-    ok = gap * gap <= u2[:, None]                           # [tiles, blocks]
-    any_ok = ok.any(dim=1)
-    lo = ok.int().argmax(dim=1)                  # first surviving block
-    hi = nr - ok.flip(1).int().argmax(dim=1)     # one past the last
-    start = torch.where(any_ok, lo * block, 0)
-    end = torch.where(any_ok, (hi * block).clamp(max=Vr), 0)
-    return start.to(torch.int32), (end - start).to(torch.int32)
-
-
-def _match_intervals_plain(q_coords, r_coords, r_mask, start, cnt):
-    """Per tile of QTILE queries, the argmin over its interval of rows only,
-    distances in float64 (exact, as `nn_match_plain`); index 0 where the
-    interval holds no valid same-batch row."""
     Vq = q_coords.shape[0]
-    tile = QTILE
-    out = torch.zeros(Vq, dtype=torch.int32, device=q_coords.device)
-    for i, (s, c) in enumerate(zip(start.tolist(), cnt.tolist())):
-        if c == 0:
-            continue
-        q = q_coords[i * tile:(i + 1) * tile].double()
-        rc = r_coords[s:s + c].double()
-        r_xyz = rc[:, 1:]
-        d = (r_xyz * r_xyz).sum(-1)[None, :] - 2.0 * (q[:, 1:] @ r_xyz.T)
-        penal = (q[:, 0:1] != rc[None, :, 0]) | ~r_mask[None, s:s + c]
-        d = d.masked_fill(penal, _BIG)
-        idx = torch.argmin(d, dim=1)
-        found = d.gather(1, idx[:, None])[:, 0] < _BIG
-        out[i * tile:(i + 1) * tile] = torch.where(found, idx + s, 0)
-    return out
-
-
-def nn_match_intervals(q_coords, r_coords, r_mask, start, cnt,
-                       n_batch: int = 0):
-    """Kernel C2 on CUDA tensors, its plain version on CPU tensors: the
-    1-NN of `nn_match`, tile i of QTILE queries scanning the reference rows
-    [start[i], start[i] + cnt[i]) only. Returns [Vq] int32."""
-    if q_coords.device.type == "cpu":
-        return _match_intervals_plain(q_coords, r_coords, r_mask, start, cnt)
-    Vq, Vr = q_coords.shape[0], r_coords.shape[0]
     nt = -(-Vq // QTILE)
-    if start.dtype != torch.int32 or cnt.dtype != torch.int32 \
-            or start.shape != (nt,) or cnt.shape != (nt,):
-        raise ValueError("nn_match_intervals: want one int32 (start, cnt) "
-                         "per query tile")
-    native.check_cuda("nn_match_intervals", q_coords, r_coords, r_mask,
-                      start, cnt)
+    tiles = range(nt) if tiles is None else [int(t) for t in tiles]
+    g = index.geo.tolist()
+    lo, cell, dims, items = torch.tensor(g[:3], device=dev), g[3], g[4:7], \
+        g[7]
+    d_t = torch.tensor(dims, device=dev)
+    nxyz = dims[0] * dims[1] * dims[2]
+    start, pts = index.cell_start.long(), index.pts.long()
+    b, qcell, live = _query_cells(q_coords, q_mask, index)
+    b, qcell = b.long(), qcell.long()
+    q = q_coords.long()[:, 1:]
+    order = order.long()
+    out = torch.zeros(Vq, dtype=torch.int32, device=dev)
+    staged = torch.zeros(len(tiles), dtype=torch.int32, device=dev)
+    kept = []
+    for k, t in enumerate(tiles):
+        kept.append([])
+        rows = order[t * QTILE:(t + 1) * QTILE]
+        rows = rows[live[rows]]
+        # one group per (item, cell x): a tile that runs from one cell x
+        # into the next would otherwise take a box as long as the grid in y
+        groups = b[rows] * (1 << 32) + qcell[rows, 0] + (1 << 31)
+        for group in torch.unique(groups).tolist():
+            sel = rows[groups == group]
+            item = group >> 32
+            base = item * nxyz
+            if int(start[base + nxyz]) == int(start[base]):
+                continue                       # an item without valid refs
+            box0, box1 = qcell[sel].amin(0), qcell[sel].amax(0)
+            # the first radius whose box reaches the grid on every axis
+            r0 = int(torch.maximum(-box1, box0 - (d_t - 1)).clamp(min=0)
+                     .max())
+            qq = q[sel]
+            # the shells r0 .. R at once, R doubling until one stops the
+            # search: shell r holds the rows whose cell is r cells from
+            # the box (within r0: shell r0), and the search stops after the
+            # first shell past which every query is done
+            R = r0 + 1
+            while True:
+                found = _shell_rows(start, base, dims, box0.tolist(),
+                                    box1.tolist(), R, False)
+                p = pts[found]
+                pc = torch.div(p[:, :3] - lo, cell, rounding_mode="floor")
+                shell = torch.maximum((box0 - pc).amax(1),
+                                      (pc - box1).amax(1)) \
+                    .clamp(min=r0) - r0
+                best = torch.full((sel.shape[0], R - r0 + 1), 1 << 62,
+                                  device=dev)
+                for s in range(0, found.shape[0], chunk):
+                    ps = p[s:s + chunk]
+                    d = ((qq[:, None] - ps[None, :, :3]) ** 2).sum(2)
+                    best.scatter_reduce_(
+                        1, shell[None, s:s + chunk].expand_as(d),
+                        (d << 32) + ps[None, :, 3], "amin")
+                best = torch.cummin(best, 1).values
+                # the least gap from each query to a cell outside the box
+                # grown by r; done once it exceeds the best distance
+                r = torch.arange(r0, R + 1, device=dev)[:, None, None]
+                gap_lo = torch.where(box0 - r - 1 >= 0,
+                                     qq - (lo + (box0 - r) * cell) + 1, _FAR)
+                gap_hi = torch.where(box1 + r + 1 <= d_t - 1,
+                                     lo + (box1 + r + 1) * cell - qq, _FAR)
+                m = torch.minimum(gap_lo, gap_hi).amin(2)
+                done = ((m == _FAR) | (m * m > (best.T >> 32))).all(1)
+                if bool(done.any()):
+                    last = int(done.nonzero()[0])
+                    break
+                R = 2 * R - r0 + 1
+            inside = shell <= last
+            staged[k] += int(inside.sum())
+            if keep_rows:
+                kept[k].append(found[inside])
+            out[sel] = (best[:, last] & 0xFFFFFFFF).to(torch.int32)
+    if keep_rows:
+        return out, staged, [torch.cat(r) if r else
+                             torch.zeros(0, dtype=torch.long, device=dev)
+                             for r in kept]
+    return out, staged
+
+
+def nn_tiles(q_coords, q_mask, index: TileIndex, order):
+    """Kernel C2 on CUDA tensors, its plain version on CPU tensors: the
+    1-NN of every searched query over `index`, the queries taken QTILE at
+    a time in `order`. Returns (idx [Vq] int32, 0 for the others; staged
+    [tiles] int32, the index rows each tile staged)."""
+    if q_coords.device.type == "cpu":
+        return nn_tiles_plain(q_coords, q_mask, index, order)
+    Vq = q_coords.shape[0]
+    if q_coords.dtype != torch.int32 or q_coords.shape != (Vq, 4) \
+            or q_mask.dtype != torch.bool or q_mask.shape != (Vq,) \
+            or order.dtype != torch.int32 or order.shape != (Vq,):
+        raise ValueError("nn_tiles: want int32 coords [Vq, 4], a bool mask "
+                         "and an int32 order of the queries")
+    native.check_cuda("nn_tiles", q_coords, q_mask, index.pts,
+                      index.cell_start, index.geo, order)
     out = torch.empty(Vq, dtype=torch.int32, device=q_coords.device)
-    _pruned_kernel(native.ptr(q_coords), Vq, native.ptr(r_coords),
-                   native.ptr(r_mask), Vr, native.ptr(start),
-                   native.ptr(cnt), int(n_batch != 1), native.ptr(out),
-                   native.stream(q_coords.device))
-    return out
+    staged = torch.empty(-(-Vq // QTILE), dtype=torch.int32,
+                         device=q_coords.device)
+    _tile_kernel(native.ptr(q_coords), native.ptr(q_mask), Vq,
+                 native.ptr(order), native.ptr(index.pts),
+                 native.ptr(index.cell_start), native.ptr(index.geo),
+                 int(index.batched), native.ptr(out), native.ptr(staged),
+                 native.stream(q_coords.device))
+    return out, staged
 
 
-def nn_match_pruned(q_coords, q_mask, r_coords, r_mask, n_batch: int = 0):
-    """`nn_match` with exact interval pruning: `prune_intervals`, then
-    kernel C2 (CUDA tensors) or its plain version (CPU tensors). Equal to
-    `nn_match` on every valid query; meant for lex-sorted inputs, where the
-    intervals are short."""
-    start, cnt = prune_intervals(q_coords, q_mask, r_coords, r_mask, n_batch)
-    return nn_match_intervals(q_coords, r_coords, r_mask, start, cnt,
-                              n_batch)
-
-
-def nn_match_pruned_plain(q_coords, q_mask, r_coords, r_mask,
-                          n_batch: int = 0, intervals=None):
-    """Plain PyTorch version of `nn_match_pruned` on any device: the same
-    intervals (or the given ones, one per QTILE queries), then per query
-    tile an argmin over its interval only."""
-    if intervals is None:
-        intervals = prune_intervals(q_coords, q_mask, r_coords, r_mask,
-                                    n_batch)
-    return _match_intervals_plain(q_coords, r_coords, r_mask, *intervals)
+def nn_match_tiled(q_coords, q_mask, r_coords, r_mask, n_batch: int = 0):
+    """The 1-NN of `nn_match` on every valid query (0 for the others),
+    for the grid chamfer's large matches: `build_tile_index` over the
+    references, `tile_order`, then kernel C2 (CUDA tensors) or its plain
+    version (CPU tensors). No host read for n_batch >= 1. [Vq] int32."""
+    _check_match_inputs("nn_match_tiled", q_coords, q_mask, r_coords, r_mask)
+    index = build_tile_index(r_coords, r_mask, n_batch)
+    order = tile_order(q_coords, q_mask, index)
+    return nn_tiles(q_coords, q_mask, index, order)[0]

@@ -3,15 +3,18 @@
 path's widths on one GPU, without the rest of chip_smoke.py.
 
     python3 scripts/torch_a1_probe.py [--all] [--a4] [--backward] [--c1]
+                                      [--b1]
 
 Builds the kernels (printing ptxas's registers, shared memory and spills
 per kernel), makes the sampling path's 180k-point pyramid (t ~ T) as
 chip_smoke.py does, prints the tile plan's redundancy and build time per
-level, and holds A1 against its plain version at (384, 256) L3 (every
+level (the plan from kernel B1's key against the tensor-op plan, B1 with
+the plan timed), and holds A1 against its plain version at (384, 256) L3 (every
 width with --all), G in {1, 2}, float32 and bf16, with chip_smoke.py's
 tolerances, then times it. --a4 adds kernel A4 (the int8 conv) at the
 same widths, --backward A3 and A2's feats gradient, --c1 kernel C1 at
-every level against both conditioning banks (chip_smoke.py's check_c1).
+every level against both conditioning banks (chip_smoke.py's check_c1),
+--b1 kernel B1 at every level and the t ~ 0 pyramid's plan (check_b1).
 """
 
 import argparse
@@ -32,6 +35,8 @@ def main() -> int:
                     help="also A3 and A2's feats gradient")
     ap.add_argument("--c1", action="store_true",
                     help="also C1 at every level and both banks")
+    ap.add_argument("--b1", action="store_true",
+                    help="also B1 at every level and the t ~ 0 plan")
     args = ap.parse_args()
     import subprocess
 
@@ -40,7 +45,7 @@ def main() -> int:
     import chip_smoke as cs
     from lidiff_tpu_torch import config as cfg_mod
     from lidiff_tpu_torch.models import diffusion
-    from lidiff_tpu_torch.ops import knn, native, sparse_conv
+    from lidiff_tpu_torch.ops import grid, knn, native, sparse_conv
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -52,7 +57,7 @@ def main() -> int:
     reports = native.build_all()
     cs.log(f"build: {len(reports)} libraries in {time.time() - t0:.1f} s")
     for name in ("conv3_columns", "conv3_columns_q", "conv3_columns_dw",
-                 "nn_match"):
+                 "nn_match", "kmap3_columns"):
         if name in reports:
             cs.log_ptxas(name, reports[name])
     if not args.all:
@@ -67,7 +72,11 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(9)
     pyr = task.pyramid_full(x_init + torch.randn(x_init.shape, generator=gen,
                                                  device=dev))
-    stats = cs.plan_stats(pyr, dev, "t~T")
+    stats, _ = cs.plan_stats(pyr, dev, "t~T")
+    if args.b1:
+        cs.log(f"B1: {cs.check_b1(pyr, grid)}")
+        cs.plan_stats(task.pyramid_full(x_init + 0.01 * torch.randn(
+            x_init.shape, generator=gen, device=dev)), dev, "t~0")
     res = cs.check_a1(pyr, sparse_conv, dev, stats)
     cs.log(f"A1 {cs.A1_TIMED}: {res}")
     if args.a4:

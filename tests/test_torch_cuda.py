@@ -9,8 +9,9 @@ active tap, input widths that are not multiples of 8 or 16 (zero-padded by
 the wrappers) and K chunks with a tail, output widths that are not
 multiples of 8 and Co = 384 (two blocks of 192 across the width), no
 bias, no ReLU, and the float32 path. Tolerances as in chip_smoke.py: B1
-and C1 exact (C1 over its grid index also examines the rows its
-tensor-code search examines); A1 float32 within 1e-5 of max|ref| (sum order), bf16
+(col_idx, hit, the plan key, and the plan's taps), C1 and C2 exact (C1
+over its grid index also examines the rows its tensor-code search
+examines, and C2's tiles stage the rows of their tensor-code search); A1 float32 within 1e-5 of max|ref| (sum order), bf16
 within one bf16 ulp plus 1e-4 of max|ref|. The bf16 down and transpose
 convs (plain PyTorch on both sides, atomic scatter order on the card)
 are held to the bound stated in `sparse_conv_down`: n * 2^-7 * A per
@@ -62,10 +63,26 @@ def test_kmap3_columns(dev, n, caps):
     pyr = _pyramid(dev, n, caps)
     for lvl in pyr.levels:
         g = lvl.geom
-        col, hit = grid.kmap3_columns(g.key, g.coords, g.mask, g.stride)
-        pcol, phit = grid.kmap3_columns_plain(g.key, g.coords, g.mask,
-                                              g.stride)
-        assert torch.equal(hit, phit) and torch.equal(col, pcol)
+        got = grid.kmap3_columns(g.key, g.coords, g.mask, g.stride)
+        want = grid.kmap3_columns_plain(g.key, g.coords, g.mask, g.stride)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        # the plan from B1's key and its taps kernel, as on the CPU
+        plan = grid.plan_from_keys(got[2])
+        ref = grid.plan_from_keys(want[2].cpu())
+        assert torch.equal(plan.order.cpu(), ref.order)
+        assert torch.equal(plan.tile_taps.cpu(), ref.tile_taps)
+
+
+def test_kmap3_columns_at_the_coordinate_limit(dev):
+    """B1 where voxels reach +-2047 (queries past it pack to PAD_KEY and
+    never hit), two batch items, most rows padding at the coarse levels."""
+    pyr = _pyramid(dev, 3000, [8192, 4096, 2048, 1024], res=0.002)
+    assert int(pyr.levels[0].geom.coords[:, 1:].abs().max()) > 2000
+    for lvl in pyr.levels:
+        g = lvl.geom
+        got = grid.kmap3_columns(g.key, g.coords, g.mask, g.stride)
+        want = grid.kmap3_columns_plain(g.key, g.coords, g.mask, g.stride)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("vq,vr,batched", [(5, 3, True), (3000, 700, True),
@@ -506,74 +523,77 @@ def _sorted_coords(rng, v, nb, lim):
     return c[np.lexsort((c[:, 3], c[:, 2], c[:, 1], c[:, 0]))]
 
 
-# vq, vr, items, |coord| limit, valid share of refs, what the case is about
+# vq, vr, items, |coord| limit, valid share of refs
 C2_CASES = {
     "random": (5000, 9000, 1, 1000, 0.9),
     "ties": (3000, 6000, 1, 6, 1.0),
     "two_items": (6000, 9000, 2, 900, 0.9),
     "coords_at_the_key_limit": (3000, 9000, 1, 2047, 1.0),
-    "wide_window": (3000, 140_000, 1, 1279, 0.95),
-    "trivial_interval": (700, 300, 2, 50, 0.8),
+    "many_refs": (3000, 140_000, 1, 1279, 0.95),
+    "fewer_refs_than_a_cell": (700, 3, 2, 50, 1.0),
     "ragged_last_tile": (257, 2000, 1, 300, 1.0),
 }
 
 
 @pytest.mark.parametrize("case", list(C2_CASES))
-def test_nn_match_pruned(dev, case):
-    """C2 and the window-bound kernel against their plain versions and
-    C1: exact on every valid query."""
+def test_nn_match_tiled(dev, case):
+    """C2 against its plain version (indices and rows staged per tile) and
+    C1: exact on every valid query; one launch."""
     vq, vr, nb, lim, r_valid = C2_CASES[case]
     rng = np.random.default_rng(len(case))
     q = torch.from_numpy(_sorted_coords(rng, vq, nb, lim)).to(dev)
     r = torch.from_numpy(_sorted_coords(rng, vr, nb, lim)).to(dev)
     qm = torch.from_numpy(rng.random(vq) < 0.9).to(dev)
     rm = torch.from_numpy(rng.random(vr) < r_valid).to(dev)
-    n_batch = 1 if nb == 1 else 0
-    launches = (knn._pruned_kernel.launches, knn._bound_kernel.launches)
-    got = knn.nn_match_pruned(q, qm, r, rm, n_batch)
-    pruning = case != "trivial_interval"
-    assert knn._pruned_kernel.launches == launches[0] + 1
-    assert knn._bound_kernel.launches == launches[1] + int(pruning)
-    start, cnt = knn.prune_intervals(q, qm, r, rm, n_batch)
-    plain = knn.nn_match_pruned_plain(q.cpu(), qm.cpu(), r.cpu(), rm.cpu(),
-                                      n_batch)
-    assert torch.equal(got.cpu()[qm.cpu()], plain[qm.cpu()])
+    n_batch = nb
+    launches = knn._tile_kernel.launches
+    got = knn.nn_match_tiled(q, qm, r, rm, n_batch)
+    assert knn._tile_kernel.launches == launches + 1
+    index = knn.build_tile_index(r, rm, n_batch)
+    order = knn.tile_order(q, qm, index)
+    idx, staged = knn.nn_tiles(q, qm, index, order)
+    plain, plain_staged = knn.nn_tiles_plain(q.cpu(), qm.cpu(),
+                                             _index_to(index, "cpu"),
+                                             order.cpu())
+    assert torch.equal(idx, got)
+    assert torch.equal(idx.cpu(), plain)
+    assert torch.equal(staged.cpu(), plain_staged)
     assert torch.equal(got[qm], knn.nn_match(q, r, rm, n_batch)[qm])
-    if pruning:
-        window = knn.window_rows(vr)
-        win = knn.window_starts(q, r, window)
-        assert torch.equal(
-            knn.window_bound(q, qm, r, rm, win, window, n_batch),
-            knn.window_bound_plain(q, qm, r, rm, win, window, n_batch != 1))
-        assert int(cnt.min()) < vr
-    else:
-        assert bool((cnt == vr).all()) and bool((start == 0).all())
+    assert bool((got[~qm] == 0).all())
 
 
-def test_nn_match_pruned_no_valid_ref_in_an_item(dev):
+def _index_to(index, device):
+    return knn.TileIndex(pts=index.pts.to(device),
+                         cell_start=index.cell_start.to(device),
+                         geo=index.geo.to(device), cap=index.cap,
+                         batched=index.batched)
+
+
+def test_nn_match_tiled_no_valid_ref_in_an_item(dev):
     rng = np.random.default_rng(3)
     q = torch.from_numpy(_sorted_coords(rng, 4000, 2, 500)).to(dev)
     r = torch.from_numpy(_sorted_coords(rng, 6000, 2, 500)).to(dev)
     qm = torch.ones(4000, dtype=torch.bool, device=dev)
     rm = r[:, 0] == 0                         # item 1 has no valid ref
-    got = knn.nn_match_pruned(q, qm, r, rm, 0)
+    got = knn.nn_match_tiled(q, qm, r, rm, 2)
     assert torch.equal(got, knn.nn_match(q, r, rm, 0))
     assert bool((got[q[:, 0] == 1] == 0).all())
 
 
-def test_nn_match_pruned_rejects_bad_input(dev):
+def test_nn_match_tiled_rejects_bad_input(dev):
     rng = np.random.default_rng(4)
     q = torch.from_numpy(_sorted_coords(rng, 600, 1, 100)).to(dev)
     r = torch.from_numpy(_sorted_coords(rng, 3000, 1, 100)).to(dev)
     qm = torch.ones(600, dtype=torch.bool, device=dev)
     rm = torch.ones(3000, dtype=torch.bool, device=dev)
-    start, cnt = knn.prune_intervals(q, qm, r, rm, 1)
+    index = knn.build_tile_index(r, rm, 1)
+    order = knn.tile_order(q, qm, index)
     with pytest.raises(ValueError):          # tensors on two devices
-        knn.nn_match_intervals(q, r, rm.cpu(), start, cnt, 1)
-    with pytest.raises(ValueError):          # one interval too few
-        knn.nn_match_intervals(q, r, rm, start[:-1], cnt[:-1], 1)
+        knn.nn_tiles(q, qm.cpu(), index, order)
+    with pytest.raises(ValueError):          # an order of the wrong length
+        knn.nn_tiles(q, qm, index, order[:-1])
     with pytest.raises(ValueError):          # non-contiguous coords
-        knn.nn_match_intervals(q.T.contiguous().T, r, rm, start, cnt, 1)
+        knn.nn_tiles(q.T.contiguous().T, qm, index, order)
 
 
 def _clouds(n, m, B, seed):
@@ -601,7 +621,7 @@ def test_chamfer_card_against_cpu(dev, method, masked):
     rng = np.random.default_rng(6)
     mx = rng.random(x.shape[:2]) < 0.8 if masked else None
     my = rng.random(y.shape[:2]) < 0.8 if masked else None
-    launches = knn._pruned_kernel.launches
+    launches = knn._tile_kernel.launches
     out = {}
     for d in (dev, "cpu"):
         a = torch.from_numpy(x).to(d).requires_grad_(True)
@@ -611,8 +631,8 @@ def test_chamfer_card_against_cpu(dev, method, masked):
         loss = chamfer.chamfer_distance(a, b, *masks, method=method)
         loss.backward()
         out[d] = (float(loss.detach()), a.grad.cpu(), b.grad.cpu())
-    assert knn._pruned_kernel.launches == launches + (2 if method == "grid"
-                                                      else 0)
+    assert knn._tile_kernel.launches == launches + (2 if method == "grid"
+                                                    else 0)
     (l_card, ga, gb), (l_cpu, ra, rb) = out[dev], out["cpu"]
     assert abs(l_card - l_cpu) <= 1e-5 * l_cpu
     for got, ref in ((ga, ra), (gb, rb)):
@@ -630,6 +650,6 @@ def test_refiner_small_training_step(dev):
     choices differing. The step takes the grid chamfer, so it runs C2."""
     import chip_smoke
     from lidiff_tpu_torch import config as cfg_mod
-    launches = knn._pruned_kernel.launches
+    launches = knn._tile_kernel.launches
     chip_smoke.check_small_refine_train(cfg_mod, "cuda")
-    assert knn._pruned_kernel.launches == launches + 2
+    assert knn._tile_kernel.launches == launches + 2

@@ -36,7 +36,7 @@ from lidiff_tpu_torch.convert import load_jax_variables
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
 from lidiff_tpu_torch.models.refine import RefineTask
 from lidiff_tpu_torch.ops import sparse_conv as sc
-from lidiff_tpu_torch.ops.grid import ColumnKernelMap
+from lidiff_tpu_torch.ops.grid import ColumnKernelMap, plan_keys
 from tests.torch_parity_helpers import (B, CFG, NP, SMALL_CAPS, SMALL_RES,
                                         TILE, jax_conv_quant,
                                         random_variables, ring_scan,
@@ -58,10 +58,10 @@ def _level(pyramid, lv):
     """(JAX level, the port's kernel map and mask of the same level)."""
     L = pyramid.levels[lv]
     mask = torch.from_numpy(np.array(L.geom.mask))
+    hit = torch.from_numpy(np.array(L.kmap3.hit, bool))
     km = ColumnKernelMap(
-        torch.from_numpy(np.array(L.kmap3.col_idx, np.int32)),
-        torch.from_numpy(np.array(L.kmap3.hit, bool)),
-        mask.sum().to(torch.int32))
+        torch.from_numpy(np.array(L.kmap3.col_idx, np.int32)), hit,
+        mask.sum().to(torch.int32), plan_keys(hit))
     return L, km, mask
 
 

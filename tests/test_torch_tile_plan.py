@@ -83,7 +83,8 @@ def test_plan_is_deterministic_and_cached(pyramid, level):
     a, b = grid.tile_plan(km.hit, g.mask), grid.tile_plan(km.hit.clone())
     assert torch.equal(a.order, b.order)
     assert torch.equal(a.tile_taps, b.tile_taps)
-    km2 = grid.ColumnKernelMap(km.col_idx, km.hit, km.nvalid)
+    km2 = grid.ColumnKernelMap(km.col_idx, km.hit, km.nvalid,
+                                grid.plan_keys(km.hit))
     assert km2.plan() is km2.plan()
     assert torch.equal(km2.plan().order, a.order)
 
@@ -208,3 +209,23 @@ def test_wrapper_plan_arguments_and_padding():
     assert order.shape == (70,) and taps.shape == (2,)
     with pytest.raises(ValueError):
         sparse_conv._plan_args(grid.tile_plan(hit[:64]), hit, mask)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_plan_key_is_the_hit_pattern(pyramid, level):
+    """Kernel B1's plan key (here its plain version, which the pyramid's
+    map carries) is the hit pattern, 1 << 27 where no tap hits, and the
+    plan sorted from it (`ColumnKernelMap.plan`) equals the plan that
+    tensor ops build from the hits: `order` and `tile_taps` both."""
+    lvl = pyramid.levels[level]
+    km, g = lvl.kmap3, lvl.geom
+    pattern = grid.hit_patterns(km.hit, g.mask)
+    assert torch.equal(km.plan_key, torch.where(pattern == 0, 1 << 27,
+                                                pattern))
+    _, _, key = grid.kmap3_columns_plain(g.key, g.coords, g.mask, g.stride)
+    assert torch.equal(key, km.plan_key)
+    order = torch.sort(torch.where(pattern == 0, 1 << 27, pattern),
+                       stable=True).indices
+    plan = km.plan()
+    assert torch.equal(plan.order, order.to(torch.int32))
+    assert torch.equal(plan.tile_taps, grid.tile_taps(pattern[order]))
