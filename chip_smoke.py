@@ -60,6 +60,18 @@ the kernels are built for sm_90a):
      steps, a resume to step 3, `--test`), `map_from_scans`, the pipeline
      on both trained checkpoints with LIDIFF_CONV_QUANT=int8, and
      `eval_path` on its .ply files and live.
+ 13. holds kernel F1 (farthest-point sampling, `ops/fps.py` `fps_cuda`)
+     against `fps_plain` index for index at 18k picks of a 120k-point ring
+     scan, k >= N, duplicated points (ties), N = 100,003 and a few points,
+     and against the host C++ copy at 18k of 120k, timing all three; the
+     pipeline (phase 11) runs its FPS through F1;
+ 14. trains at world 1 through a one-rank NCCL group (`parallel/mesh.py`):
+     a small float32 step against the plain `Trainer.train_step`, then
+     2 + 3 full-width diffusion steps with and without the group, each
+     timed with its host syncs;
+ 15. completes two scans through `complete_scans(devices=["cuda:0",
+     "cuda:0"])`, two replicas of the bf16 pipeline on the one card, each
+     held against `complete_scan` with that replica's generator.
 It prints one line per phase, then a {"kernels": [...]} JSON line, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
@@ -126,6 +138,16 @@ C2_SUBSET_TILES = 512       # whole query tiles (16,384 queries) held
 PLAIN_PAIRS = 1 << 28       # (query, ref) pairs per block of nn_match_plain
 CHAMFER_GRID_RTOL = 1e-3    # grid against exact loss, as tests/test_chamfer.py
 CHAMFER_CPU_RTOL = 1e-5     # card against CPU: float32 sums in other orders
+SCANS_NN_TOL = 1e-2         # complete_scans' replicas against complete_scan
+SCANS_COUNT_TOL = 5e-3      # on the card: mean nearest-neighbour distance
+                            # each way (m; a fifth of the 0.05 m voxel),
+                            # relative point count: the voxel features are
+                            # summed by atomics in another order each run,
+                            # and a bf16 rounding may fall the other way.
+                            # Sound runs gave at most 0.00088 m and the other
+                            # replica's generator at least 0.387 m on an H100
+                            # 80GB HBM3 at 700 W (PERF.md): the limit is 11x
+                            # the one, 1/39 the other
 CHOICES_DIFFER = 1e-4       # share of ReLU signs, and of chamfer picks, that
                             # may fall the other way on the CPU: inputs
                             # within float32 rounding of zero, resp. points
@@ -155,7 +177,7 @@ class Count:
 def kernel_table() -> dict:
     """The launch counters of every kernel the main paths run, by name:
     each has a `launches` that its wrapper raises at a launch."""
-    from lidiff_tpu_torch.ops import grid, knn, sparse_conv
+    from lidiff_tpu_torch.ops import fps, grid, knn, sparse_conv
     return {"A1": sparse_conv._conv3_kernel,
             "A4": sparse_conv._conv3_q_kernel,
             "A2": sparse_conv.Conv3ColumnsFunction,
@@ -164,7 +186,7 @@ def kernel_table() -> dict:
             "C1": knn._nn_kernel,
             "C1 scan": Count(knn._nn_kernel, "scans"),
             "C1 index": Count(knn.NNIndex, "builds"),
-            "C2": knn._tile_kernel}
+            "C2": knn._tile_kernel, "F1": fps._fps_kernel}
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -780,17 +802,15 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
     distance to the bf16 output. Returns the launches."""
     import torch
     from lidiff_tpu_torch.ops import chamfer
+    from lidiff_tpu_torch.utils import prof
     task.sample(x_init, part, torch.Generator(device=dev).manual_seed(2),
                 solver=solver)
     _sync(dev)
     for k in kernels.values():
         k.launches = 0
-    t0 = time.time()
-    out = task.sample(x_init, part,
-                      torch.Generator(device=dev).manual_seed(1),
-                      solver=solver)
-    _sync(dev)
-    total_s = time.time() - t0
+    out, total_s = prof.block_and_time(
+        task.sample, x_init, part, torch.Generator(device=dev).manual_seed(1),
+        solver=solver)
     launches = {n: k.launches for n, k in kernels.items()}
     # per guided step one match per level and bank, the uncond bank's a
     # scan; one index per bank and completion
@@ -798,10 +818,7 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
     if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
         raise AssertionError(f"completion launches {launches}, expected "
                              f"{want}")
-    t0 = time.time()
-    task.encode_banks(part)
-    _sync(dev)
-    enc_s = time.time() - t0
+    _, enc_s = prof.block_and_time(task.encode_banks, part)
     step_ms = (total_s - enc_s) / steps * 1e3
     ovf = [int(v) for v in task.pyramid_full(out).overflows()]
     cd = float(chamfer.chamfer_distance(out, out_bf16))
@@ -840,6 +857,7 @@ def run(steps: int, dev: str = "cuda"):
     from lidiff_tpu_torch.diffusion.dpm_solver import make_dpm_solver
     from lidiff_tpu_torch.models import diffusion
     from lidiff_tpu_torch.ops import grid, knn, sparse_conv
+    from lidiff_tpu_torch.utils import prof
 
     # ---- inputs of the sampling path (180k points, res 0.05) ----
     # The synthetic rings merge less at the coarse levels than the scans the
@@ -892,6 +910,7 @@ def run(steps: int, dev: str = "cuda"):
         check_c2_case(knn, f"sampling, L0 queries x {name} bank", g0.coords,
                       g0.mask, bank.coords, bank.mask, 1)
     res.update(check_backward(pyr, sparse_conv, dev))
+    res["F1"] = check_f1(dev)
     log(f"kernel checks: {time.time() - t0:.1f} s")
     check_small_reference(cfg_mod, diffusion, dev)
     check_small_reference(cfg_mod, diffusion, dev, conv_quant=True)
@@ -912,12 +931,9 @@ def run(steps: int, dev: str = "cuda"):
     _sync(dev)
     for k in kernels.values():
         k.launches = 0
-    t0 = time.time()
-    out = task.sample(x_init, part,
-                      torch.Generator(device=dev).manual_seed(1),
-                      solver=solver)
-    _sync(dev)
-    total_s = time.time() - t0
+    out, total_s = prof.block_and_time(
+        task.sample, x_init, part, torch.Generator(device=dev).manual_seed(1),
+        solver=solver)
     launches = {n: k.launches for n, k in kernels.items()}
     # per guided step one match per level and bank, the uncond bank's a
     # scan; one index per bank and completion
@@ -925,10 +941,7 @@ def run(steps: int, dev: str = "cuda"):
     if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
         raise AssertionError(f"completion launches {launches}, expected "
                              f"{want}")
-    t0 = time.time()
-    task.encode_banks(part)
-    _sync(dev)
-    enc_s = time.time() - t0
+    _, enc_s = prof.block_and_time(task.encode_banks, part)
     step_ms = (total_s - enc_s) / steps * 1e3
     log(f"completion: {steps} steps of the 1000-step linear schedule, "
         f"{N_PART * TILE} points, bf16, G=2, w=6: {total_s:.3f} s, encoder "
@@ -960,6 +973,8 @@ def run(steps: int, dev: str = "cuda"):
 
     # ---- 6. the training path at full width ----
     train_launches = run_training(cfg, kernels, x_init, part, dev)
+    # ---- 14. data parallelism at world 1 ----
+    run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev)
     # ---- 8, 9. the refiner at full width ----
     c2_res, refine_launches = run_refine(cfg, kernels, dev)
     res.update(c2_res)
@@ -1106,6 +1121,117 @@ def run_training(cfg, kernels, x_init, part, dev):
     if any(overflow):
         raise AssertionError("capacity overflow on the training input")
     return launches
+
+
+def _host_syncs(fn):
+    """(fn(), the number of calls in it that made the host wait for the
+    card) by torch's CUDA sync debug mode; 0 off the card."""
+    import warnings
+
+    import torch
+    if not torch.cuda.is_available():
+        return fn(), 0
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
+    """Data-parallel training at world 1: a one-rank group through a file
+    store (NCCL on the card, gloo on the CPU; `parallel/mesh.py`). A small
+    float32 step through the distributed trainer (synced BN, the
+    regularizer over the group, averaged gradients) against
+    `Trainer.train_step` without a group, the same weights and draws,
+    within check_small_train's tolerances; then TRAIN_WARMUP + TRAIN_STEPS
+    full-width diffusion steps without and with the group, each step timed
+    by `prof.block_and_time` (host clock to the card's finish) with its
+    host syncs."""
+    import numpy as np
+    import torch
+    from lidiff_tpu_torch.parallel import mesh
+    from lidiff_tpu_torch.training.trainer import Trainer
+    from lidiff_tpu_torch.utils import prof
+    backend = "NCCL" if dev == "cuda" else "gloo"
+    group = mesh.init_ranks(0, 1, mesh.file_init_method(), dev)
+    try:
+        caps = {"full_capacities": [4096] * 3 + [3072, 2048],
+                "part_capacities": [512] * 5}
+        small = cfg_mod.finalize_config(make_cfg(4000, 2, cr=0.25, caps=caps))
+        rng = np.random.default_rng(6)
+        p_np = np.concatenate([ring_scan(400, seed=3), ring_scan(400, seed=4)])
+        f_np = np.tile(p_np, (1, TILE, 1)) + rng.normal(
+            0, 0.05, (2, 400 * TILE, 3)).astype(np.float32)
+        batch = {"pcd_full": torch.from_numpy(f_np).to(dev),
+                 "pcd_part": torch.from_numpy(p_np).to(dev)}
+        draws = {"noise": torch.from_numpy(rng.normal(size=f_np.shape).astype(
+                     np.float32)).to(dev),
+                 "t": torch.tensor([700, 150], device=dev), "drop": False}
+        out = {}
+        with tempfile.TemporaryDirectory() as exp:
+            for name, g in (("plain", None), ("distributed", group)):
+                task = diffusion.DiffusionTask(small, device=dev, seed=2,
+                                               compute_dtype=torch.float32,
+                                               group=g)
+                m = Trainer(task, small, exp, group=g).train_step(batch,
+                                                                  **draws)
+                out[name] = (float(m["loss"]), {n: p.grad.cpu() for n, p in
+                                                task.model.named_parameters()})
+        (l_ref, g_ref), (l_ddp, g_ddp) = out["plain"], out["distributed"]
+        top = max(float(g.abs().max()) for g in g_ref.values())
+        worst, worst_name = 0.0, ""
+        for n, ref in g_ref.items():
+            err = float((g_ddp[n] - ref).abs().max())
+            lim = TRAIN_GRAD_TOL * float(ref.abs().max()) + \
+                TRAIN_GRAD_ATOL * top
+            if err / lim > worst:
+                worst, worst_name = err / lim, n
+        log(f"world-1 {backend} step, small f32, distributed vs "
+            f"plain: loss {l_ddp:.6f} vs {l_ref:.6f}; worst gradient at "
+            f"{worst:.3f} of its tolerance ({worst_name})")
+        if not abs(l_ddp - l_ref) <= TRAIN_LOSS_RTOL * abs(l_ref) or \
+                not worst <= 1.0:
+            raise AssertionError("the world-1 distributed step differs from "
+                                 "the plain step")
+
+        # full width: plain, then distributed, one task at a time
+        times = {}
+        for name, g in (("plain", None), ("distributed", group)):
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            task = diffusion.DiffusionTask(cfg, device=dev, seed=0,
+                                           compute_dtype=torch.bfloat16,
+                                           group=g)
+            gen = mesh.rank_generator(3, 0, dev)
+            full = {"pcd_full": x_init, "pcd_part": part}
+            with tempfile.TemporaryDirectory() as exp:
+                trainer = Trainer(task, cfg, exp, group=g)
+                for _ in range(TRAIN_WARMUP):
+                    trainer.train_step(full, gen)
+                # the step's host syncs counted inside, the wait for the
+                # card's finish outside
+                steps = [prof.block_and_time(
+                    _host_syncs, lambda: trainer.train_step(full, gen))
+                    for _ in range(TRAIN_STEPS)]
+            times[name] = [(s * 1e3, n, float(m["loss"]))
+                           for (m, n), s in steps]
+            if dev == "cuda" and g is not None:
+                profile_step(lambda: trainer.train_step(full, gen),
+                             "one world-1 distributed training step")
+            del task, trainer
+        for name, rows in times.items():
+            log(f"world-1 training step at full width, {name}: " + "; ".join(
+                f"{ms:.1f} ms, {n} host syncs, loss {loss:.4f}"
+                for ms, n, loss in rows))
+        if not all(math.isfinite(r[2]) for rows in times.values()
+                   for r in rows):
+            raise AssertionError("world-1 training: a loss is not finite")
+    finally:
+        mesh.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -1671,6 +1797,75 @@ def run_cli(dev: str, tmp: str) -> None:
 # the completion pipeline and its evaluation
 # ---------------------------------------------------------------------------
 
+def check_f1(dev):
+    """Kernel F1 (farthest-point sampling) against `fps_plain` on the
+    device, index for index: 18k picks of a PIPE_SCAN-point ring scan (the
+    pipeline's shape), k >= N, a cloud of duplicated points (ties: after
+    its distinct points every distance is 0 and each pick is index 0), an
+    N that is not a multiple of the block, a few points, slices too large
+    for shared memory and the 8-block cluster; at 18k of
+    PIPE_SCAN also against the host C++ copy. Times F1 (CUDA events
+    around back-to-back calls, and queued behind a spin kernel),
+    `fps_plain` and the host C++ copy; the bound and the latency of the
+    k - 1 dependent rounds."""
+    import numpy as np
+    import torch
+    from lidiff_tpu_torch.native import fps_native
+    from lidiff_tpu_torch.ops import fps as F
+    ring = ring_scan(PIPE_SCAN, seed=41)[0]
+    dup = np.tile(ring_scan(2_000, seed=5)[0], (3, 1))
+    big = ring_scan(300_000, seed=43)[0]
+    # (name, points, k, the largest cluster to try): a block's slice stays
+    # in shared memory up to about 14.5k points; beyond (300k over 16
+    # blocks, 140k over 8) F1 reads the points from global memory. 8 takes
+    # the cluster F1 falls back to where 16 blocks do not fit.
+    cases = [("18k of a ring scan", ring, N_PART, 16),
+             ("k >= N", ring[:1000], 1000, 16),
+             ("k > N", ring[:1000], 1500, 16),
+             ("duplicated points", dup, 2_500, 16),
+             ("N = 100,003", ring[:100_003], 700, 16),
+             ("N = 37", ring[:37], 5, 16), ("k = 1", ring[:500], 1, 16),
+             ("N = 0", ring[:0], 4, 16),
+             ("N = 300,000, slices in global memory", big, 500, 16),
+             ("8 blocks, N = 100,003", ring[:100_003], 700, 8),
+             ("8 blocks, N = 140,000, slices in global memory",
+              big[:140_000], 500, 8)]
+    for name, pts, k, cluster in cases:
+        t = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
+        got = F.fps_cuda(t, k, max_cluster=cluster)
+        want = F.fps_plain(t, k)
+        if k < len(pts) and F._fps_kernel.cluster != cluster:
+            raise AssertionError(f"F1 ({name}) took a cluster of "
+                                 f"{F._fps_kernel.cluster}, not {cluster}")
+        if not torch.equal(got, want):
+            bad = int((got != want).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"F1 differs from fps_plain ({name}): {bad} "
+                                 "picks")
+    t = torch.from_numpy(ring).to(dev)
+    got = F.fps_cuda(t, N_PART).cpu().numpy()
+    fps_native(ring[:8], 2)                   # the host library's build
+    t0 = time.perf_counter()
+    host = fps_native(ring, N_PART)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, host):
+        raise AssertionError(f"F1 differs from the host C++ copy: "
+                             f"{int((got != host).sum())} picks")
+    ms = _time_ms(lambda: F.fps_cuda(t, N_PART), 3)
+    dev_ms = _device_ms(lambda: F.fps_cuda(t, N_PART), 3)
+    plain_ms = _time_ms(lambda: F.fps_plain(t, N_PART), 1)
+    n, k = PIPE_SCAN, N_PART
+    bound, by = _bound_ms(9 * n * (k - 1), PEAK_F32, 12 * n + 8 * k)
+    pick_us = ms / (k - 1) * 1e3
+    log(f"F1 fps: equal to fps_plain in {len(cases)} cases and to the host "
+        f"C++ copy at {k} of {n}; a cluster of {F._fps_kernel.cluster} "
+        f"blocks; {ms:.3f} ms by events ({pick_us:.2f} us a pick), "
+        f"{dev_ms:.3f} ms on the card, plain {plain_ms:.1f} ms, host C++ "
+        f"{host_ms:.1f} ms, bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                host_cpp_ms=host_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
 def run_pipeline(cfg, kernels, steps: int, dev):
     """`DiffCompletion.complete_scan` at full width: random-init diffusion
     and refiner checkpoints saved as the trainers save them, a PIPE_SCAN-
@@ -1766,6 +1961,10 @@ def run_pipeline(cfg, kernels, steps: int, dev):
                                      "run A4 and B1")
             out[what] = (refined, launches)
             del dc
+        # ---- 15. complete_scans over two replicas on the one card ----
+        check_complete_scans(pipe, exps, [scan, ring_scan(PIPE_SCAN,
+                                                          seed=43)[0]],
+                             steps, dev)
     pred = out["int8"][0]
     times, vals = {}, {}
 
@@ -1793,7 +1992,71 @@ def run_pipeline(cfg, kernels, steps: int, dev):
             for x in (v if isinstance(v, tuple) else (v,))]
     if not all(math.isfinite(x) for x in flat):
         raise AssertionError("pipeline metrics are not finite")
-    return out["int8"][1]
+    # F1 runs in the bf16 run (the int8 run reuses its crop and FPS)
+    return {**out["int8"][1], "F1": out["bf16"][1]["F1"]}
+
+
+def check_complete_scans(pipe, exps, scans, steps: int, dev) -> None:
+    """`DiffCompletion.complete_scans(devices=[dev, dev])`: two replicas of
+    the bf16 pipeline on the one card, one scan each, at once. Each output
+    (diff and refined) against `complete_scan` of a pipeline whose
+    generator is that replica's (`mesh.rank_generator(42, j)`), run twice:
+    the replica's output against each run and the two runs against each
+    other are three sound readings, each within SCANS_NN_TOL and
+    SCANS_COUNT_TOL. The control, the replica's output against
+    `complete_scan` of the same scan with the other replica's generator,
+    must lie beyond SCANS_NN_TOL: the limit tells a swapped or shared
+    generator from the atomics' noise."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+    from lidiff_tpu_torch.parallel import mesh
+
+    def make(replica=None):
+        p = pipe.DiffCompletion(exps["diff_net"], exps["refine_net"],
+                                steps, 6.0, seed=42, device=dev)
+        if replica is not None:
+            p.generator = mesh.rank_generator(42, replica, dev)
+        return p
+
+    def nn_dist(a, b):
+        return max(float(cKDTree(b).query(a)[0].mean()),
+                   float(cKDTree(a).query(b)[0].mean()))
+
+    t0 = time.perf_counter()
+    got = make().complete_scans(scans, devices=[dev, dev])
+    two_s = time.perf_counter() - t0
+    sound, control = [], []
+    for j, scan in enumerate(scans):
+        own = [make(j).complete_scan(scan) for _ in range(2)]
+        other = make(1 - j).complete_scan(scan)
+        for w, what in enumerate(("refined", "diff")):
+            a = got[j][w]
+            pairs = [(a, own[0][w]), (a, own[1][w]), (own[0][w], own[1][w])]
+            nns = [nn_dist(x, y) for x, y in pairs]
+            counts = [abs(len(x) - len(y)) / max(len(y), 1)
+                      for x, y in pairs]
+            sound += list(zip(nns, counts))
+            control.append(nn_dist(a, other[w]))
+            same = a.shape == own[0][w].shape and np.array_equal(a,
+                                                                 own[0][w])
+            log(f"complete_scans, replica {j} ({what}): {len(a)} points, "
+                f"{'equal' if same else 'not equal'} to complete_scan; mean "
+                f"nearest-neighbour distance to its two runs and between "
+                f"them {', '.join(f'{v:.6f}' for v in nns)} m, relative "
+                f"counts {', '.join(f'{c:.2e}' for c in counts)}; with the "
+                f"other replica's generator {control[-1]:.6f} m")
+    log(f"complete_scans: 2 scans over 2 replicas on one card in "
+        f"{two_s:.3f} s (with building the replicas); sound readings at most "
+        f"{max(n for n, _ in sound):.6f} m, the control at least "
+        f"{min(control):.6f} m, limit {SCANS_NN_TOL} m")
+    if not all(nn <= SCANS_NN_TOL and c <= SCANS_COUNT_TOL
+               for nn, c in sound):
+        raise AssertionError("complete_scans' replicas differ from "
+                             "complete_scan with their generators")
+    if min(control) <= SCANS_NN_TOL:
+        raise AssertionError("a replica's output lies within SCANS_NN_TOL "
+                             "of complete_scan with the other replica's "
+                             "generator: the limit does not tell them apart")
 
 
 def run_eval_clis(dev: str, tree: str, kernels) -> None:
@@ -1856,9 +2119,11 @@ _CATEGORIES = (("A3 conv3_columns_dw", ("conv3_columns_dw",)),
                ("B1 kmap3_columns", ("kmap3_",)),
                ("C2 nn_match_tiled", ("nn_match_tiled",)),
                ("C1 nn_match", ("nn_match",)),
+               ("F1 fps", ("fps_cluster",)),
                ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
                                   "nvjet")),
                ("optimizer (Adam)", ("multi_tensor",)),
+               ("NCCL", ("nccl",)),
                ("sort", ("sort", "radix")),
                ("scatter/gather/index", ("index", "scatter", "gather")),
                ("copy/cast/concat", ("copy",)))
@@ -1874,22 +2139,16 @@ def _category(kernel_name: str) -> str:
 
 
 def profile_step(step, label: str) -> None:
-    """Device time by kernel over one call of `step` (torch.profiler), and
-    the device's busy share of the call's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        step()
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
+    """Device time by kernel over one call of `step` (`utils/prof.py`:
+    torch.profiler through `trace`, the call inside `annotate` and timed by
+    `block_and_time`), and the device's busy share of its wall time. `step`
+    returns tensors on the card, which `block_and_time` waits for."""
+    from lidiff_tpu_torch.utils import prof
+    with prof.trace() as p:
+        with prof.annotate(label):
+            _, wall_s = prof.block_and_time(step)
+    wall_us = wall_s * 1e6
+    by_name = prof.device_time_by_kernel(p)
     busy = sum(by_name.values())
     if not by_name:
         log("profile: the profiler saw no device events")
@@ -1977,13 +2236,16 @@ def main(argv=None) -> int:
                "refiner training"),
         "A4": ("conv3_columns_q",
                "lidiff_tpu/ops/pallas_conv.py:840 (quant=True)",
-               "int8 sampling")}
+               "int8 sampling"),
+        "F1": ("fps",
+               "lidiff_tpu/native/src/lidiff_native.cpp:54 (lidiff_fps, "
+               "host C++)", "pipeline")}
     for path, names in (
             ("sampling", ("A1", "B1", "B1 taps", "C1")),
             ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1")),
             ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1")),
             ("refiner training", ("A1", "A2", "A3", "B1", "B1 taps", "C2")),
-            ("pipeline", ("A4", "B1", "B1 taps", "C1"))):
+            ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1"))):
         for n in names:
             if paths[path][n] == 0:
                 raise AssertionError(f"kernel {n} was not launched on the "

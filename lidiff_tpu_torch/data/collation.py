@@ -4,7 +4,8 @@ lidiff_tpu/data/collation.py).
 Numpy re-design of the reference lidiff/utils/collations.py:
 
   * `point_set_to_sparse`       (ref :41-63)  — diffusion items: tile the
-    partial scan, build the 10 m viewpoint grid from it, FPS to n_part,
+    partial scan, build the 10 m viewpoint grid from it, FPS to n_part
+    (the host C++ kernel: a loader worker's FPS stays on the host),
     viewpoint-filter the GT map crop, shuffle+tile GT to exactly n_full,
     per-item mean/std.
   * `point_set_to_sparse_refine` (ref :66-82) — refine items: shuffle+tile
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from lidiff_tpu_torch.native import viewpoint_filter_native
 from lidiff_tpu_torch.ops.fps import fps
 
 
@@ -25,7 +27,16 @@ def viewpoint_filter(full: np.ndarray, part: np.ndarray,
                      voxel: float = 10.0) -> np.ndarray:
     """Boolean mask of `full` points lying in `voxel`-sized cells occupied
     by `part` (Open3D VoxelGrid.check_if_included parity: grid origin at the
-    partial cloud's min bound)."""
+    partial cloud's min bound), by the host C++ kernel as in the JAX
+    package."""
+    return viewpoint_filter_native(full, part, voxel)
+
+
+def viewpoint_filter_numpy(full: np.ndarray, part: np.ndarray,
+                           voxel: float = 10.0) -> np.ndarray:
+    """`viewpoint_filter` in numpy, its cells computed in float32 (the C++
+    kernel's in float64: a point within rounding of a cell's face may fall
+    on the other side)."""
     origin = part[:, :3].min(0)
 
     def cells(p):

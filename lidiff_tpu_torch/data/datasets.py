@@ -28,10 +28,13 @@ class TemporalKittiDataModule:
             dataset_norm=d.get("dataset_norm", False),
             std_axis_norm=d.get("std_axis_norm", False))
 
-    def train_dataloader(self):
+    def train_dataloader(self, rank: int = 0, world: int = 1):
+        """The training batches; with `world` > 1, rank `rank`'s rows of
+        each."""
         ds = self._make(self.cfg["data"]["train"], self.cfg["data"]["split"])
         return DataLoader(ds, self.cfg["train"]["batch_size"], shuffle=True,
-                          num_workers=self.cfg["train"]["num_workers"])
+                          num_workers=self.cfg["train"]["num_workers"],
+                          rank=rank, world=world)
 
     def val_dataloader(self):
         ds = self._make(self.cfg["data"]["validation"], "validation")
@@ -56,14 +59,18 @@ class TemporalKittiRefineDataModule:
             split=split, resolution=d["resolution"],
             num_points=d["num_points"])
 
-    def _loader(self, ds, batch_size, shuffle=False):
+    def _loader(self, ds, batch_size, shuffle=False, rank=0, world=1):
         return DataLoader(ds, batch_size, shuffle=shuffle,
                           part_key="pcd_noise",
-                          num_workers=self.cfg["train"]["num_workers"])
+                          num_workers=self.cfg["train"]["num_workers"],
+                          rank=rank, world=world)
 
-    def train_dataloader(self):
+    def train_dataloader(self, rank: int = 0, world: int = 1):
+        """The training batches; with `world` > 1, rank `rank`'s rows of
+        each."""
         ds = self._make(self.cfg["data"]["train"], self.cfg["data"]["split"])
-        return self._loader(ds, self.cfg["train"]["batch_size"], shuffle=True)
+        return self._loader(ds, self.cfg["train"]["batch_size"], shuffle=True,
+                            rank=rank, world=world)
 
     def val_dataloader(self):
         return self._loader(

@@ -13,13 +13,20 @@ from typing import Iterator
 import numpy as np
 
 from lidiff_tpu_torch.data.collation import collate
+from lidiff_tpu_torch.parallel import mesh
 
 
 class DataLoader:
+    """Batches of `batch_size` items in a (seeded) shuffled order. With
+    `world` > 1 it yields rank `rank`'s rows [rank*B/world,
+    (rank+1)*B/world) of each global batch: the ranks share the order, so
+    their rows make up the one-process batch."""
+
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  part_key: str = "pcd_part", num_workers: int = 2,
                  seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2):
+                 prefetch: int = 2, rank: int = 0, world: int = 1):
+        self.rows = mesh.rank_slice(batch_size, rank, world)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -42,8 +49,9 @@ class DataLoader:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(idx)
         nb = len(self)
+        B = self.batch_size
         for b in range(nb):
-            yield idx[b * self.batch_size:(b + 1) * self.batch_size]
+            yield idx[b * B:(b + 1) * B][self.rows]
 
     def __iter__(self) -> Iterator[dict]:
         batches = list(self._index_batches())

@@ -93,6 +93,7 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.group = None      # process group of synced BN (set_bn_group)
 
     def affine(self):
         """(k, c) with y = x * k + c, used to fold BN into a conv."""
@@ -104,7 +105,7 @@ class MaskedBatchNorm(nn.Module):
             if groups != 1:
                 raise ValueError("grouped BatchNorm is inference-only")
             # the gradient flows through the batch moments
-            mean, var, cnt = masked_moments(feats, mask)
+            mean, var, cnt = masked_moments(feats, mask, self.group)
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
@@ -122,6 +123,15 @@ class MaskedBatchNorm(nn.Module):
             c = bias - mean * k
             y = feats * k.to(feats.dtype) + c.to(feats.dtype)
         return torch.where(mask[:, None], y, 0.0)
+
+
+def set_bn_group(model: nn.Module, group) -> None:
+    """Every MaskedBatchNorm of `model` takes its training moments over the
+    ranks of the process `group` (synced BN, the counterpart of the JAX
+    modules' `axis_name`); None keeps them to this process."""
+    for m in model.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.group = group
 
 
 class ConvBNReLU(nn.Module):

@@ -24,7 +24,7 @@ from lidiff_tpu_torch.diffusion.ddpm import make_ddpm, q_sample
 from lidiff_tpu_torch.diffusion.dpm_solver import (DPMSolver, init_state,
                                                    make_dpm_solver,
                                                    solver_step)
-from lidiff_tpu_torch.models.blocks import init_weights
+from lidiff_tpu_torch.models.blocks import init_weights, set_bn_group
 from lidiff_tpu_torch.models.minkunet import MinkGlobalEnc, MinkUNetDiff
 from lidiff_tpu_torch.ops.grid import Pyramid, build_pyramid
 
@@ -77,11 +77,15 @@ class DiffusionTask:
     Runs on `device` (default: the card) with `compute_dtype` (default: the
     config's `tpu.compute_dtype`). The weights are a seeded random init
     (`seed`); `lidiff_tpu_torch.convert.load_jax_variables` replaces them
-    with a JAX checkpoint's. `conv_quant` selects the int8 eval conv
-    (kernel A4) for sampling; training never quantizes."""
+    with a JAX checkpoint's. `group`, a torch.distributed process group,
+    syncs the training BatchNorm moments over its ranks (None: this
+    process alone); the rest of the loss, the classifier-free coin and the
+    mean/std regularizer included, is each rank's own on its rows, as each
+    replica's is in lidiff_tpu/parallel/mesh.py. `conv_quant` selects the
+    int8 eval conv (kernel A4) for sampling; training never quantizes."""
 
     def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0,
-                 conv_quant: bool = False):
+                 conv_quant: bool = False, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
@@ -103,6 +107,7 @@ class DiffusionTask:
                                     compute_dtype=compute_dtype,
                                     conv_quant=conv_quant)
         init_weights(self.model, torch.Generator().manual_seed(seed))
+        set_bn_group(self.model, group)
         self.model.to(self.device).eval()
         self.resolution = float(cfg["data"]["resolution"])
         self.full_caps = list(cfg["tpu"]["full_capacities"])

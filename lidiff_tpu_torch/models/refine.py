@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from lidiff_tpu_torch import resolve_device
-from lidiff_tpu_torch.models.blocks import init_weights
+from lidiff_tpu_torch.models.blocks import init_weights, set_bn_group
 from lidiff_tpu_torch.models.diffusion import DTYPES, eval_no_grad
 from lidiff_tpu_torch.models.minkunet import MinkUNet
 from lidiff_tpu_torch.ops.chamfer import chamfer_distance
@@ -22,11 +22,13 @@ class RefineTask:
     Runs on `device` (default: the card) with `compute_dtype` (default: the
     config's `tpu.compute_dtype`). The weights are a seeded random init
     (`seed`); `lidiff_tpu_torch.convert.load_jax_variables` replaces them
-    with a JAX checkpoint's. `conv_quant` selects the int8 eval conv
+    with a JAX checkpoint's. `group`, a torch.distributed process group,
+    syncs the training BatchNorm moments over its ranks (None: this
+    process alone). `conv_quant` selects the int8 eval conv
     (kernel A4) for `forward`; training never quantizes."""
 
     def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0,
-                 conv_quant: bool = False):
+                 conv_quant: bool = False, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
@@ -39,6 +41,7 @@ class RefineTask:
                               compute_dtype=compute_dtype,
                               conv_quant=conv_quant)
         init_weights(self.model, torch.Generator().manual_seed(seed))
+        set_bn_group(self.model, group)
         self.model.to(self.device).eval()
         self.resolution = float(cfg["data"]["resolution"])
         self.caps = list(cfg["tpu"]["full_capacities"])

@@ -662,16 +662,26 @@ def sparse_conv_transpose(coarse_feats, parent_idx, tap, weights, fine_mask,
     return (o * ok[:, None, None]).reshape(-1, G * Cout)
 
 
-def masked_moments(feats, mask):
+def masked_moments(feats, mask, group=None):
     """Per-channel mean and biased variance over the valid voxels, and
-    their count (counterpart of lidiff_tpu/ops/sparse_conv.py:434-460,
-    one device). The sums are float32 whatever feats' dtype;
-    var = max(s2 / cnt - mean^2, 0) and cnt = max(sum(mask), 1)."""
+    their count (counterpart of lidiff_tpu/ops/sparse_conv.py:434-460).
+    The sums are float32 whatever feats' dtype. With a process `group`
+    (the counterpart of `axis_name`) the count and both sums are summed
+    over its ranks by one all-reduce whose backward all-reduces the
+    gradient, as JAX's psum transposes to a psum, so the gradient flows
+    through the global moments. Then cnt = max(cnt, 1),
+    var = max(s2 / cnt - mean^2, 0)."""
     mv = mask.to(feats.dtype)
     fm = feats * mv[:, None]
     s1 = fm.float().sum(0)
     s2 = (fm * feats).float().sum(0)
-    cnt = mv.float().sum().clamp(min=1.0)
+    cnt = mv.float().sum()
+    if group is not None:
+        from lidiff_tpu_torch.parallel.mesh import all_reduce_sum
+        C = s1.shape[0]
+        sums = all_reduce_sum(torch.cat([cnt[None], s1, s2]), group)
+        cnt, s1, s2 = sums[0], sums[1:C + 1], sums[C + 1:]
+    cnt = cnt.clamp(min=1.0)
     mean = s1 / cnt
     var = (s2 / cnt - mean * mean).clamp(min=0.0)
     return mean, var, cnt

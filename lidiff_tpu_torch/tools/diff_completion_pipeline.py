@@ -5,12 +5,13 @@ lidiff_tpu/tools/diff_completion_pipeline.py, argparse in place of click).
         -r REFINE_EXP -T 50 -s 6.0 -p SCANS -o OUT [--max_scans N]
         [--device cpu]
 
-Loads the diffusion and refinement checkpoints that the port's trainers
-write (`hparams.json` and `checkpoints/step_<n>.pt`), then for each scan of
-SCANS (.bin, .ply or .npy): range crop and FPS to num_points / 10 on the
-host, tile 10x, classifier-free DPM-Solver sampling, range and z-window
-crop, refinement offsets (up_factor points per point), and .ply outputs
-with normals under OUT/<exp>/{diff,refine}/, plus OUT/<exp>/exp_config.yaml.
+Loads the diffusion and refinement checkpoints that the port's trainers write
+(`hparams.json` and `checkpoints/step_<n>.pt`), then for each scan of SCANS
+(.bin, .ply or .npy): range crop on the host and FPS to num_points / 10 (kernel
+F1 on the card), tile 10x, classifier-free DPM-Solver sampling, range and
+z-window crop, refinement offsets (up_factor points per point), and .ply
+outputs with normals under OUT/<exp>/{diff,refine}/, plus
+OUT/<exp>/exp_config.yaml.
 It runs on the card unless `--device cpu` is given; LIDIFF_CONV_QUANT=int8
 runs every eval column conv with Cin >= 32 as the int8 conv (kernel A4).
 `complete_scan` returns (refined, diff), the tuple the JAX package's
@@ -20,8 +21,11 @@ eval_path fix expects.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -30,7 +34,8 @@ from lidiff_tpu_torch.config import (conv_quant_from_env, finalize_config,
                                      save_config)
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
 from lidiff_tpu_torch.models.refine import RefineTask
-from lidiff_tpu_torch.ops.fps import fps
+from lidiff_tpu_torch.ops.fps import fps, fps_cuda
+from lidiff_tpu_torch.parallel import mesh
 from lidiff_tpu_torch.training.trainer import CheckpointManager
 from lidiff_tpu_torch.utils import ply
 from lidiff_tpu_torch.utils.natsort import natsorted
@@ -67,9 +72,9 @@ class DiffCompletion:
 
     Runs on `device` (default: the card). `conv_quant` selects the int8
     eval conv for the encoder, the denoiser and the refiner. With several
-    scans `complete_scans` completes them one after the other on that one
-    device: the batch sharded across cards waits for the port's multi-GPU
-    work (ROADMAP.md, Queue A item 9)."""
+    devices `complete_scans` keeps one replica of both tasks on each, with
+    its own generator, and completes the scans in groups, one scan per
+    device at a time."""
 
     def __init__(self, diff_ckpt_dir: str, refine_ckpt_dir: str | None,
                  denoising_steps: int, cond_weight: float, seed: int = 42,
@@ -88,6 +93,7 @@ class DiffCompletion:
         self.cfg["train"]["uncond_w"] = float(cond_weight)
         self.cfg["data"]["max_range"] = 50.0
 
+        self.seed, self.conv_quant = seed, conv_quant
         self.task = DiffusionTask(self.cfg, device=device,
                                   conv_quant=conv_quant)
         self.device = self.task.device
@@ -108,14 +114,23 @@ class DiffCompletion:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._overflow_checked = False
         self.times: dict[str, float] = {}   # host seconds per stage, last scan
+        self._replicas: dict[tuple, list] = {}   # devices -> replicas
 
     # ---------------- host pre/post ----------------
 
     def preprocess_scan(self, scan: np.ndarray) -> np.ndarray:
-        """Crop (3.5, max_range), FPS to n_part, tile 10x."""
+        """Crop (3.5, max_range) on the host, FPS to n_part on the task's
+        device (kernel F1 on the card, the host C++ kernel on the CPU), tile
+        10x."""
         dist = np.linalg.norm(scan[:, :3], axis=-1)
-        scan = scan[(dist < self.max_range) & (dist > 3.5)][:, :3]
-        scan = fps(scan.astype(np.float32), self.n_part)
+        scan = np.ascontiguousarray(
+            scan[(dist < self.max_range) & (dist > 3.5)][:, :3], np.float32)
+        if self.device.type == "cuda":
+            idx = fps_cuda(torch.from_numpy(scan).to(self.device),
+                           self.n_part)
+            scan = scan[idx.cpu().numpy()]
+        else:
+            scan = fps(scan, self.n_part)
         if len(scan) < self.n_part:            # degenerate tiny scans
             reps = int(np.ceil(self.n_part / max(len(scan), 1)))
             scan = np.tile(scan, (reps, 1))[:self.n_part]
@@ -155,10 +170,64 @@ class DiffCompletion:
                       "postprocess": t3 - t2, "refine": t4 - t3}
         return refined, post
 
-    def complete_scans(self, scans: list):
-        """(refined, diff) for each scan, in input order, one scan at a
-        time on this task's device."""
-        return [self.complete_scan(s) for s in scans]
+    def _replica(self, device, index: int) -> "DiffCompletion":
+        """This pipeline on `device`: the same configuration and weights,
+        and its own generator seeded from (seed, index) (`mesh.rank_seed`;
+        replica 0 draws what this pipeline's fresh generator draws)."""
+        r = copy.copy(self)
+        r.task = DiffusionTask(self.cfg, device=device,
+                               conv_quant=self.conv_quant)
+        r.task.model.load_state_dict(self.task.model.state_dict())
+        r.device = r.task.device
+        if self.refine_task is not None:
+            r.refine_task = RefineTask(self.refine_task.cfg, device=r.device,
+                                       conv_quant=self.conv_quant)
+            r.refine_task.model.load_state_dict(
+                self.refine_task.model.state_dict())
+        r.generator = mesh.rank_generator(self.seed, index, r.device)
+        r.times, r._replicas = {}, {}
+        return r
+
+    def complete_scans(self, scans: list, devices=None):
+        """(refined, diff) for each scan, in input order. With n > 1
+        `devices` (default: every card when this pipeline is on the card)
+        the scans go in groups of n, scan j of a group to replica j, the
+        replicas running at once; the last group is padded with copies of
+        its last scan, whose outputs are dropped (lidiff_tpu's
+        `complete_scans`). Replica j's outputs equal `complete_scan` of a
+        pipeline whose generator is `mesh.rank_generator(seed, j)`, on the
+        scans j, j + n, ... and the padding in that order. With one device,
+        one scan after the other here."""
+        if devices is None:
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            devices = [f"cuda:{i}" for i in range(n)]
+        devices = [str(torch.device(d)) for d in devices]
+        n = len(devices)
+        if n <= 1 or len(scans) <= 1:
+            return [self.complete_scan(s) for s in scans]
+        key = tuple(devices)
+        if key not in self._replicas:
+            self._replicas[key] = [self._replica(d, i)
+                                   for i, d in enumerate(devices)]
+        replicas = self._replicas[key]
+
+        def run(rep, scan):
+            ctx = (torch.cuda.device(rep.device) if rep.device.type == "cuda"
+                   else contextlib.nullcontext())
+            with ctx:
+                return rep.complete_scan(scan)
+
+        results = []
+        with ThreadPoolExecutor(n) as pool:
+            for i0 in range(0, len(scans), n):
+                group = list(scans[i0:i0 + n])
+                pad = n - len(group)
+                group += [group[-1]] * pad
+                futures = [pool.submit(run, rep, s)
+                           for rep, s in zip(replicas, group)]
+                outs = [f.result() for f in futures]
+                results.extend(outs[:n - pad])
+        return results
 
     def complete_scan_diff(self, scan: np.ndarray) -> np.ndarray:
         """The single output eval harnesses take: the refined cloud."""

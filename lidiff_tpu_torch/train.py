@@ -4,7 +4,10 @@ Usage: python -m lidiff_tpu_torch.train -c CONFIG [-w weights_ckpt_dir]
        [-ckpt resume_dir] [--test] [--max_steps N] [--device cpu]
 
 CONFIG is a `.json` or YAML file with the reference schema. Training runs
-on the card unless `--device cpu` is given. Every five epochs one
+on the card unless `--device cpu` is given; train.n_gpus > 1 starts one
+process per card (min(n_gpus, cards); one process on the CPU), each on its
+rows of every batch with synced BatchNorm and averaged gradients, rank 0
+alone checkpointing and logging. Every five epochs one
 validation batch is sampled and scored (Chamfer distance, PR-AUC); a
 validation that fails raises, where the JAX CLI prints the error and trains
 on. `--test` samples the validation split with the reference's test
@@ -29,6 +32,7 @@ from lidiff_tpu_torch.config import (conv_quant_from_env, finalize_config,
                                      load_config, save_config)
 from lidiff_tpu_torch.data.datasets import dataloaders
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
+from lidiff_tpu_torch.parallel import mesh
 from lidiff_tpu_torch.training.trainer import CheckpointManager, Trainer
 from lidiff_tpu_torch.utils.metrics import ChamferDistance, PrecisionRecall
 from lidiff_tpu_torch.utils.ply import write_ply
@@ -59,23 +63,31 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    set_deterministic()
     cfg = load_config(args.config)
     if args.weights is not None and args.test:
         cfg = _graft_test_config(cfg, args.weights)
+    world = 1 if args.test else mesh.world_size(cfg, args.device)
+    mesh.launch(_run, world, args.device, args, cfg)
 
-    task = DiffusionTask(cfg, device=args.device, seed=42,
-                         conv_quant=conv_quant_from_env())
+
+def _run(rank: int, world: int, group, device, args, cfg) -> None:
+    """One rank of the run (the whole run at world 1): rank 0 writes the
+    hparams, checkpoints, logs and validations."""
+    set_deterministic()
+    task = DiffusionTask(cfg, device=device, seed=42,
+                         conv_quant=conv_quant_from_env(), group=group)
     dev = task.device
     data = dataloaders[cfg["data"]["dataloader"]](cfg)
 
     exp_dir = os.path.join("experiments", cfg["experiment"]["id"])
-    os.makedirs(exp_dir, exist_ok=True)
-    save_config(cfg, os.path.join(exp_dir, "hparams.json"))
+    if rank == 0:
+        os.makedirs(exp_dir, exist_ok=True)
+        save_config(cfg, os.path.join(exp_dir, "hparams.json"))
 
-    loader = data.train_dataloader()
-    trainer = Trainer(task, cfg, exp_dir, steps_per_epoch=max(len(loader), 1))
-    gen = torch.Generator(device=dev).manual_seed(42)
+    loader = data.train_dataloader(rank, world)
+    trainer = Trainer(task, cfg, exp_dir, steps_per_epoch=max(len(loader), 1),
+                      group=group)
+    gen = mesh.rank_generator(42, rank, dev)
 
     src = args.checkpoint or args.weights
     if src:
@@ -90,15 +102,18 @@ def main(argv=None) -> None:
         run_test(task, cfg, data, exp_dir)
         return
 
-    print(f"TRAINING MODE ({dev})")
-    old_handlers = {s: signal.getsignal(s)
-                    for s in (signal.SIGTERM, signal.SIGINT)}
-    trainer.install_signal_checkpointing()
+    if rank == 0:
+        procs = f", {world} processes" if world > 1 else ""
+        print(f"TRAINING MODE ({dev}{procs})")
+        old_handlers = {s: signal.getsignal(s)
+                        for s in (signal.SIGTERM, signal.SIGINT)}
+        trainer.install_signal_checkpointing()
     try:
         _train_loop(trainer, loader, data, cfg, gen, args)
     finally:
-        for s, h in old_handlers.items():
-            signal.signal(s, h)
+        if rank == 0:
+            for s, h in old_handlers.items():
+                signal.signal(s, h)
     trainer.logger.flush()
 
 
@@ -121,7 +136,7 @@ def _train_loop(trainer, loader, data, cfg, gen, args) -> None:
             t0 = time.time()
             metrics = trainer.train_step(batch, gen)
             step += 1
-            if step % 10 == 0:
+            if step % 10 == 0 and trainer.is_main:
                 m = {f"train/{k}": float(v) for k, v in metrics.items()}
                 m["train/step_time"] = time.time() - t0
                 trainer.logger.log(step, m)
@@ -137,7 +152,7 @@ def _train_loop(trainer, loader, data, cfg, gen, args) -> None:
                 break
         trainer.save(epoch)
         # the reference validates every 5 epochs on about one batch
-        if (epoch + 1) % 5 == 0:
+        if (epoch + 1) % 5 == 0 and trainer.is_main:
             run_validation(trainer.task, cfg, data, trainer, step)
         if max_steps and step >= max_steps:
             break

@@ -6,7 +6,8 @@ Usage: python -m lidiff_tpu_torch.train_refine -c CONFIG
        [--device cpu]
 
 CONFIG is a `.json` or YAML file with the reference schema. Training runs
-on the card unless `--device cpu` is given. One validation batch runs
+on the card unless `--device cpu` is given; train.n_gpus > 1 starts one
+process per card, as `lidiff_tpu_torch.train` does. One validation batch runs
 before training, 5% of the validation split every five epochs, and `--test`
 evaluates the whole split. A validation that fails raises: the JAX CLI
 prints the error and trains on. LIDIFF_CONV_QUANT=int8 runs the eval
@@ -28,6 +29,7 @@ from lidiff_tpu_torch.config import (conv_quant_from_env, load_config,
 from lidiff_tpu_torch.data.datasets import dataloaders_refine
 from lidiff_tpu_torch.models.refine import RefineTask
 from lidiff_tpu_torch.ops.chamfer import chamfer_distance
+from lidiff_tpu_torch.parallel import mesh
 from lidiff_tpu_torch.training.trainer import CheckpointManager, Trainer
 
 
@@ -52,19 +54,27 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    np.random.seed(42)
     cfg = load_config(args.config)
+    world = 1 if args.test else mesh.world_size(cfg, args.device)
+    mesh.launch(_run, world, args.device, args, cfg)
 
-    task = RefineTask(cfg, device=args.device, seed=42,
-                      conv_quant=conv_quant_from_env())
+
+def _run(rank: int, world: int, group, device, args, cfg) -> None:
+    """One rank of the run (the whole run at world 1): rank 0 writes the
+    hparams, checkpoints, logs and validations."""
+    np.random.seed(42)
+    task = RefineTask(cfg, device=device, seed=42,
+                      conv_quant=conv_quant_from_env(), group=group)
     data = dataloaders_refine[cfg["data"]["dataloader"]](cfg)
 
     exp_dir = os.path.join("experiments", cfg["experiment"]["id"])
-    os.makedirs(exp_dir, exist_ok=True)
-    save_config(cfg, os.path.join(exp_dir, "hparams.json"))
+    if rank == 0:
+        os.makedirs(exp_dir, exist_ok=True)
+        save_config(cfg, os.path.join(exp_dir, "hparams.json"))
 
-    loader = data.train_dataloader()
-    trainer = Trainer(task, cfg, exp_dir, steps_per_epoch=max(len(loader), 1))
+    loader = data.train_dataloader(rank, world)
+    trainer = Trainer(task, cfg, exp_dir, steps_per_epoch=max(len(loader), 1),
+                      group=group)
 
     src = args.checkpoint or args.weights
     if src:
@@ -79,15 +89,18 @@ def main(argv=None) -> None:
         run_test(task, data)
         return
 
-    print(f"TRAINING MODE ({task.device})")
-    old_handlers = {s: signal.getsignal(s)
-                    for s in (signal.SIGTERM, signal.SIGINT)}
-    trainer.install_signal_checkpointing()
+    if rank == 0:
+        procs = f", {world} processes" if world > 1 else ""
+        print(f"TRAINING MODE ({task.device}{procs})")
+        old_handlers = {s: signal.getsignal(s)
+                        for s in (signal.SIGTERM, signal.SIGINT)}
+        trainer.install_signal_checkpointing()
     try:
         _train_loop(trainer, loader, data, cfg, args)
     finally:
-        for s, h in old_handlers.items():
-            signal.signal(s, h)
+        if rank == 0:
+            for s, h in old_handlers.items():
+                signal.signal(s, h)
     trainer.logger.flush()
 
 
@@ -96,7 +109,9 @@ def _train_loop(trainer, loader, data, cfg, args) -> None:
     step = trainer.global_step
     # one validation batch before training: a broken validation path shows
     # before hours of training (the reference's num_sanity_val_steps=1)
-    run_validation(task, data, trainer, step, max_batches=1, tag="sanity")
+    if trainer.is_main:
+        run_validation(task, data, trainer, step, max_batches=1,
+                       tag="sanity")
     # epoch-aware resume, as lidiff_tpu_torch/train.py
     if args.checkpoint and trainer.last_epoch >= 0:
         start_epoch = trainer.last_epoch + 1
@@ -110,7 +125,7 @@ def _train_loop(trainer, loader, data, cfg, args) -> None:
             t0 = time.time()
             metrics = trainer.train_step(batch)
             step += 1
-            if step % 10 == 0:
+            if step % 10 == 0 and trainer.is_main:
                 m = {f"train/{k}": float(v) for k, v in metrics.items()}
                 m["train/step_time"] = time.time() - t0
                 trainer.logger.log(step, m)
@@ -120,7 +135,7 @@ def _train_loop(trainer, loader, data, cfg, args) -> None:
                 break
         trainer.save(epoch)
         # the reference validates every 5 epochs on 5% of the split
-        if (epoch + 1) % 5 == 0:
+        if (epoch + 1) % 5 == 0 and trainer.is_main:
             run_validation(task, data, trainer, step)
         if max_steps and step >= max_steps:
             break

@@ -1,12 +1,14 @@
-"""Training harness: optimizer, LR schedule, checkpointing, logging
-(counterpart of lidiff_tpu/training/trainer.py, one device).
+"""Training harness: optimizer, LR schedule, checkpointing, logging and
+data parallelism (counterpart of lidiff_tpu/training/trainer.py).
 
 Adam(0.9, 0.999, eps 1e-8) with the stepped exponential decay of the
 reference (gamma 0.5 every 5 epochs), one `torch.save` file per checkpoint
 (every epoch, all kept), tensorboardX metric logging where it is installed.
 The training state lives in the task's model, the optimizer and the
 scheduler, as is PyTorch's habit; the JAX trainer passes it around as a
-dict.
+dict. With a process group (`parallel/mesh.py`) each rank steps on its
+rows of the batch, the gradients, BN running statistics and metrics are
+averaged over the ranks, and only rank 0 writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import re
 import signal
 
 import torch
+
+from lidiff_tpu_torch.parallel import mesh
 
 
 def make_optimizer(params, lr: float, decay_every_epochs: int = 5,
@@ -79,18 +83,26 @@ class CheckpointManager:
 
 
 class MetricLogger:
-    """TensorBoard metric writer (tensorboardX) with stdout fallback."""
+    """TensorBoard metric writer (tensorboardX) with stdout fallback; a
+    logger that is not `enabled` (a data-parallel rank other than 0) writes
+    nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
+        self.enabled = enabled
+        self.writer = None
+        self.log_dir = log_dir
+        if not enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter
             self.writer = SummaryWriter(log_dir)
         except ImportError:
-            self.writer = None
-        self.log_dir = log_dir
+            pass
 
     def log(self, step: int, metrics: dict):
+        if not self.enabled:
+            return
         if self.writer is not None:
             for k, v in metrics.items():
                 self.writer.add_scalar(k, float(v), step)
@@ -108,13 +120,14 @@ class MetricLogger:
 
 class Trainer:
     """Training loop over a task exposing `model` and `loss_fn`, on the
-    task's device."""
+    task's device. `group` is the process group of data-parallel training
+    (None: one process); the task's BatchNorm should sync over the same
+    group."""
 
-    def __init__(self, task, cfg, exp_dir: str, steps_per_epoch: int = 1):
-        if int(cfg["train"].get("n_gpus", 1)) > 1:
-            raise NotImplementedError(
-                "train.n_gpus > 1: multi-GPU training is not ported yet "
-                "(ROADMAP.md, Queue A item 9)")
+    def __init__(self, task, cfg, exp_dir: str, steps_per_epoch: int = 1,
+                 group=None):
+        self.group = group
+        self.is_main = mesh.rank_of(group) == 0
         self.task = task
         self.cfg = cfg
         self.exp_dir = exp_dir
@@ -123,7 +136,8 @@ class Trainer:
             task.model.parameters(), float(cfg["train"]["lr"]),
             steps_per_epoch=steps_per_epoch)
         self.ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
-        self.logger = MetricLogger(os.path.join(exp_dir, "tb"))
+        self.logger = MetricLogger(os.path.join(exp_dir, "tb"),
+                                   enabled=self.is_main)
         self.global_step = 0
         self.last_epoch = -1   # epoch of the restored checkpoint, if any
 
@@ -147,20 +161,31 @@ class Trainer:
         return True
 
     def train_step(self, batch: dict, generator=None, **draws):
-        """One optimizer step on `batch`; `draws` (noise, t, drop) go to
-        the task's `loss_fn`. Returns the step's metrics."""
+        """One optimizer step on `batch` (this rank's rows of the global
+        batch); `draws` (noise, t, drop) go to the task's `loss_fn`. With a
+        group the gradients are averaged over the ranks before the
+        optimizer, then the BN running statistics and the metrics. Returns
+        the step's metrics."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.task.loss_fn(batch, generator, **draws)
         loss.backward()
+        if self.group is not None:
+            mesh.all_reduce_grads(self.task.model.parameters(), self.group)
         self.optimizer.step()
         self.scheduler.step()
         self.global_step += 1
+        if self.group is not None:
+            mesh.average_buffers(self.task.model, self.group)
+            metrics = mesh.average_metrics(metrics, self.group)
         return metrics
 
     def save(self, epoch: int):
         """Checkpoint keyed by global step (unique even for mid-epoch
         signal saves), with the epoch recorded in the payload: reference
-        checkpoints are named by epoch and resume is epoch-aware."""
+        checkpoints are named by epoch and resume is epoch-aware. Only rank
+        0 writes."""
+        if not self.is_main:
+            return
         self.ckpt.save(self.global_step,
                        {**self.state_dict(), "epoch": int(epoch)},
                        hparams=self.cfg)

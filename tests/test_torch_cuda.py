@@ -30,7 +30,11 @@ not multiples of 16 (the wrapper pads them for the 16-byte int8 copies).
 The differentiable conv (A2) is held to the same backward rule on the CPU:
 its feats gradient like A1 (float32 1e-5 of max|ref|; bf16 one bf16 ulp
 plus 1e-4 of max|ref|), its weight gradient like A3 plus, in bf16, the one
-rounding of dW to the weights' dtype."""
+rounding of dW to the weights' dtype.
+F1 (farthest-point sampling) is held to `fps_plain` on the card and to the
+host C++ copy index for index, on clouds smaller than a block, larger than
+the grid's first cover, with N not a multiple of the block, with
+duplicated points, k = 1 and k >= N."""
 
 import math
 
@@ -653,3 +657,40 @@ def test_refiner_small_training_step(dev):
     launches = knn._tile_kernel.launches
     chip_smoke.check_small_refine_train(cfg_mod, "cuda")
     assert knn._tile_kernel.launches == launches + 2
+
+
+def _fps_cloud(n, seed, dup=1):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 10.0, (n, 3)).astype(np.float32)
+    return np.tile(pts, (dup, 1))
+
+
+# (N, k, copies of the cloud, the largest cluster to try). A block's slice
+# stays in shared memory up to about 226 KB, 14.5k points: beyond (300k
+# points over 16 blocks, 140k over 8) F1 reads the points from global
+# memory, and max_cluster 8 takes the cluster F1 falls back to where 16
+# blocks do not fit.
+F1_CASES = {"one block": (200, 50, 1, 16),
+            "N % 256 != 0": (12_345, 400, 1, 16),
+            "four points a thread": (140_000, 60, 1, 16),
+            "duplicated points": (500, 900, 3, 16), "k = 1": (300, 1, 1, 16),
+            "k >= N": (300, 300, 1, 16),
+            "slices in global memory": (300_000, 500, 1, 16),
+            "8-block cluster": (100_003, 700, 1, 8),
+            "8-block cluster, slices in global memory": (140_000, 60, 1, 8)}
+
+
+@pytest.mark.parametrize("case", list(F1_CASES))
+def test_fps_kernel(dev, case):
+    from lidiff_tpu_torch.native import fps_native
+    from lidiff_tpu_torch.ops import fps
+    n, k, dup, cluster = F1_CASES[case]
+    pts = _fps_cloud(n, 11, dup)
+    t = torch.from_numpy(pts).to(dev)
+    got = fps.fps_cuda(t, k, max_cluster=cluster)
+    torch.cuda.synchronize()
+    if k < len(pts):
+        assert fps._fps_kernel.cluster == cluster
+    assert got.dtype == torch.int64 and got.device == t.device
+    assert torch.equal(got, fps.fps_plain(t, k))
+    np.testing.assert_array_equal(got.cpu().numpy(), fps_native(pts, k))

@@ -57,8 +57,10 @@ def _scan(seed, n=3000):
 
 def test_host_stages_match_jax():
     """`preprocess_scan` (crop, FPS, tile) and `postprocess_scan` (range
-    and z crop) called unbound on the same attributes, exactly."""
-    ns = types.SimpleNamespace(max_range=50.0, n_part=NUM_POINTS // 10)
+    and z crop) called unbound on the same attributes, exactly (the port's
+    FPS on the CPU: its host C++ copy)."""
+    ns = types.SimpleNamespace(max_range=50.0, n_part=NUM_POINTS // 10,
+                               device=torch.device("cpu"))
     scan = _scan(0)
     x_t = tpipe.DiffCompletion.preprocess_scan(ns, scan)
     x_j = jpipe.DiffCompletion.preprocess_scan(ns, scan)

@@ -190,10 +190,19 @@ def test_checkpoint_manager_keeps_all_and_restores_latest(tmp_path):
 
 
 def test_trainer_refuses_multi_gpu(tree, tmp_path):
-    cfg = finalize_config(_cfg(tree, n_gpus=2))
+    """train.n_gpus > 1 is data-parallel training now: a Trainer builds
+    with it (one process, no group), the CLIs' world on the CPU is one
+    process (the CPU is one device, as for lidiff_tpu/train.py), and what
+    is refused is a batch that does not split evenly over the ranks."""
+    from lidiff_tpu_torch.parallel import mesh
+    cfg = finalize_config(_cfg(tree, n_gpus=2, batch_size=3))
     task = DiffusionTask(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(task, cfg, str(tmp_path / "exp"))
+    trainer = Trainer(task, cfg, str(tmp_path / "exp"))
+    assert trainer.group is None and trainer.is_main
+    assert mesh.world_size(cfg, "cpu") == 1
+    data = dataloaders["KITTI"](cfg)
+    with pytest.raises(ValueError, match="multiple of the world size"):
+        data.train_dataloader(0, 2)
 
 
 def test_train_cli_steps_then_resume(tree, tmp_path, monkeypatch, capsys):
