@@ -22,13 +22,19 @@ the kernels are built for sm_90a):
      f32 denoise on the card against the same weights on the CPU;
   5. holds the conv's backward kernels against their plain versions at the
      same widths (A3, the weight gradient, over the map's tile plan in
-     bf16, and A2, the feats gradient through the autograd Function), and a
+     bf16, and A2, the feats gradient through the autograd Function), a
      small f32 training step on the card against the CPU (loss and every
      parameter's gradient);
-  6. takes 2 + 3 optimizer steps through `Trainer.train_step` at full width
-     on the same 180k-point scan (bf16 compute, float32 activations, batch
-     1), split into forward, backward and optimizer time, with launch
-     counts, peak memory and a profile of one step;
+  6. at full width on the same 180k-point scan (batch 1): one float32 step
+     with remat (`tpu.remat`, the stages' activations recomputed in the
+     backward pass) and one without, under torch's deterministic
+     algorithms, held to each other at check_small_train's tolerances;
+     then (bf16 compute, float32 activations) 2 + 3 optimizer steps
+     through `Trainer.train_step` without remat and with it, split into
+     forward, backward and optimizer time, with launch counts (A1 once more
+     per stage conv with remat), peak memory and a profile of one remat
+     step; then 2 + 3 steps at the config's batch of
+     2 (two scans, capacities twice the one-item ones, no overflow);
   7. runs the `lidiff_tpu_torch.train` CLI on a small synthetic KITTI tree:
      two steps, then a resume that takes a third;
   8. holds the chamfer's 1-NN matcher (kernel C2 over its grid index)
@@ -39,10 +45,11 @@ the kernels are built for sm_90a):
      without its index beside C1 over its own; holds the chamfer loss
      (exact and grid) against the CPU, and a small f32 refiner training
      step on the card against the CPU;
-  9. takes 2 + 3 optimizer steps on `RefineTask` through
-     `Trainer.train_step` at full width (180k jittered points, up_factor 6,
-     a 360k-point target), split into model forward, chamfer index passes,
-     the rest of the loss, backward and optimizer;
+  9. the same remat comparison and 2 + 3 optimizer steps each way on
+     `RefineTask` at full width (180k jittered points, up_factor 6, a
+     360k-point target), split into model forward, chamfer index passes,
+     the rest of the loss, backward and optimizer; then 2 + 3 steps at the
+     config's batch of 8 (C2 over eight items);
  10. holds kernel A4 (the int8 eval conv) against its plain version at every
      sampling width with Cin >= 32, beside A1, with its prologue timed
      apart, and on integer feats against A1; runs the same completion with
@@ -66,9 +73,10 @@ the kernels are built for sm_90a):
      and against the host C++ copy at 18k of 120k, timing all three; the
      pipeline (phase 11) runs its FPS through F1;
  14. trains at world 1 through a one-rank NCCL group (`parallel/mesh.py`):
-     a small float32 step against the plain `Trainer.train_step`, then
-     2 + 3 full-width diffusion steps with and without the group, each
-     timed with its host syncs;
+     a small float32 step against the plain `Trainer.train_step` (the
+     collectives a step counted with remat and without), then 2 + 3
+     full-width diffusion steps with remat, with and without the group,
+     each timed with its host syncs and collectives;
  15. completes two scans through `complete_scans(devices=["cuda:0",
      "cuda:0"])`, two replicas of the bf16 pipeline on the one card, each
      held against `complete_scan` with that replica's generator.
@@ -128,6 +136,10 @@ TRAIN_WARMUP = 2            # untimed optimizer steps first: the first
                             # its forward phase with one warm-up step
 TRAIN_STEPS = 3             # timed optimizer steps
 CONVS_PER_STEP = 52         # column convs: 34 in the denoiser, 18 encoder
+REMAT_STATS_TOL = 1e-4      # BN running statistics, remat on vs off on the
+                            # card, x (1 + |value|)
+DIFF_BATCH = 2              # the configs' batch sizes (config.json,
+REFINE_BATCH = 8            # config_refine.json)
 PIPE_SCAN = 120_000         # points of the pipeline's synthetic scan, about
                             # a KITTI scan before the range crop and FPS
 SMALL_DENOISE_TOL = 1e-3    # small f32 guided denoise (float32 or int8
@@ -148,6 +160,10 @@ SCANS_COUNT_TOL = 5e-3      # on the card: mean nearest-neighbour distance
                             # replica's generator at least 0.387 m on an H100
                             # 80GB HBM3 at 700 W (PERF.md): the limit is 11x
                             # the one, 1/39 the other
+# the warning of torch's CUDA sync debug mode at each host sync (its notice
+# on being first switched on, "Synchronization debug mode is a prototype
+# feature ...", is not one)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 CHOICES_DIFFER = 1e-4       # share of ReLU signs, and of chamfer picks, that
                             # may fall the other way on the CPU: inputs
                             # within float32 rounding of zero, resp. points
@@ -973,11 +989,13 @@ def run(steps: int, dev: str = "cuda"):
 
     # ---- 6. the training path at full width ----
     train_launches = run_training(cfg, kernels, x_init, part, dev)
+    batch_launches = run_training_batch(cfg, kernels, dev)
     # ---- 14. data parallelism at world 1 ----
     run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev)
     # ---- 8, 9. the refiner at full width ----
     c2_res, refine_launches = run_refine(cfg, kernels, dev)
     res.update(c2_res)
+    refine_batch_launches = run_refine_batch(cfg, kernels, dev)
     # ---- 11. the pipeline at full width ----
     pipe_launches = run_pipeline(cfg, kernels, steps, dev)
     # ---- 7, 10, 12. the CLIs on one small tree ----
@@ -988,25 +1006,35 @@ def run(steps: int, dev: str = "cuda"):
         run_eval_clis(dev, tree, kernels)
     return res, {"sampling": launches, "int8 sampling": int8_launches,
                  "training": train_launches,
+                 f"training at batch {DIFF_BATCH}": batch_launches,
                  "refiner training": refine_launches,
+                 f"refiner training at batch {REFINE_BATCH}":
+                     refine_batch_launches,
                  "pipeline": pipe_launches}
 
 
 def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
-                loss_key: str, want: dict, describe, instrument=None):
+                loss_key: str, want: dict, describe, instrument=None,
+                draws=None, profile: bool = True):
     """TRAIN_WARMUP + TRAIN_STEPS optimizer steps through
     Trainer.train_step, each timed step split by device events into forward
     (the task's loss_fn), backward and optimizer. Checks a finite loss, a
     finite gradient for every parameter, that every parameter and running
     statistic moved and, on the card, the launches per step in `want`;
-    then profiles one more step. `describe(metrics)` words a step's
-    metrics; `instrument(mark)` may set further marks inside the forward
-    phase and returns (undo, split) with split(marks of one step, elapsed)
-    wording them. Returns the kernels' launches over the timed steps."""
+    then profiles one more step (`profile`). `describe(metrics)` words a
+    step's metrics; `instrument(mark)` may set further marks inside the
+    forward phase and returns (undo, split) with split(marks of one step,
+    elapsed) wording them; `draws` go to every step's loss_fn. The peak
+    memory counts from here (the task built). Returns the kernels'
+    launches over the timed steps."""
     import torch
     from lidiff_tpu_torch.training.trainer import Trainer
     cuda = dev == "cuda"
+    draws = draws or {}
     model = task.model
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     marks = []
 
@@ -1024,7 +1052,7 @@ def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
     with tempfile.TemporaryDirectory() as exp_dir:
         trainer = Trainer(task, cfg, exp_dir)
         for _ in range(TRAIN_WARMUP):
-            trainer.train_step(batch, gen)
+            trainer.train_step(batch, gen, **draws)
         _sync(dev)
         for k in kernels.values():
             k.launches = 0
@@ -1047,7 +1075,7 @@ def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
         try:
             for _ in range(TRAIN_STEPS):
                 mark("start")
-                losses.append(trainer.train_step(batch, gen))
+                losses.append(trainer.train_step(batch, gen, **draws))
             _sync(dev)
         finally:
             del task.loss_fn              # back to the class's method
@@ -1089,56 +1117,247 @@ def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
                     raise AssertionError(
                         f"{what}: kernel {n}: {per_step.get(n, 0)} launches "
                         f"per step, expected {c}")
-            profile_step(lambda: trainer.train_step(batch, gen),
-                         f"one {what} step")
+            if profile:
+                profile_step(lambda: trainer.train_step(batch, gen, **draws),
+                             f"one {what} step")
     return launches
 
 
+def stage_convs(model) -> int:
+    """The column convs inside the model's DownStages and UpStages: with
+    remat a training step runs each forward once more, in the backward
+    pass (4 a stage, in its two residual blocks)."""
+    from lidiff_tpu_torch.models.blocks import DownStage, SparseConv, UpStage
+    return sum(1 for st in model.modules()
+               if isinstance(st, (DownStage, UpStage))
+               for m in st.modules()
+               if isinstance(m, SparseConv) and m.kernel.shape[0] == 27)
+
+
+def grad_step(task, batch, draws):
+    """One loss and backward pass of a fresh task: (loss, the gradients and
+    the BN running statistics on the host)."""
+    task.model.zero_grad()
+    loss, _ = task.loss_fn(batch, **draws)
+    loss.backward()
+    return (float(loss.detach()),
+            {n: p.grad.float().cpu() for n, p in
+             task.model.named_parameters()},
+            {n: b.float().cpu() for n, b in task.model.named_buffers()})
+
+
+def step_differences(got, ref):
+    """How far step `got` is from step `ref` (both `grad_step`'s): the
+    loss's relative difference, the worst gradient leaf in units of
+    check_small_train's tolerance (2e-3 of its max|grad| plus 1e-4 of the
+    largest) and its name, and the worst running statistic in units of
+    REMAT_STATS_TOL x (1 + |value|). A NaN counts as the worst."""
+    import torch
+    (l_got, g_got, s_got), (l_ref, g_ref, s_ref) = got, ref
+    top = max(float(g.abs().max()) for g in g_ref.values())
+    worst, worst_name = -1.0, ""
+    for n, r in g_ref.items():
+        err = float((g_got[n] - r).abs().max())
+        lim = TRAIN_GRAD_TOL * float(r.abs().max()) + TRAIN_GRAD_ATOL * top
+        if not err / lim <= worst:
+            worst, worst_name = err / lim, n
+    stats = float(torch.stack([
+        ((s_got[n] - r).abs() / (REMAT_STATS_TOL * (1 + r.abs()))).max()
+        for n, r in s_ref.items()]).max())
+    return abs(l_got - l_ref) / abs(l_ref), worst, worst_name, stats
+
+
+def compare_remat(make_task, batch, draws, what: str):
+    """At full width in float32, one loss and backward pass with remat off
+    and one with it: fresh tasks of one seed (`make_task(remat)`, float32
+    compute), the same batch and `draws`, under
+    `torch.use_deterministic_algorithms` (the scatter-adds sorted: with the
+    card's atomic adds, two runs of one step already differ at this size;
+    scripts/torch_remat_diff.py measures both ways). The remat run is held
+    to the other at check_small_train's tolerances: the loss within
+    TRAIN_LOSS_RTOL, every gradient within TRAIN_GRAD_TOL of its max|grad|
+    plus TRAIN_GRAD_ATOL of the largest, the running statistics within
+    REMAT_STATS_TOL. Logs how many gradients are equal
+    bit for bit (A3's float32 weight gradient keeps its atomic adds)."""
+    import warnings
+
+    import torch
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        # new tensors as the step makes them otherwise (not filled with NaN)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            off, on = (grad_step(make_task(r), batch, draws)
+                       for r in (False, True))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+    nondet = sorted({"cuBLAS" if "CuBLAS" in str(w.message) else
+                     str(w.message).split(" does not have")[0]
+                     for w in seen if "deterministic" in str(w.message)})
+    loss_d, worst, name, stats = step_differences(on, off)
+    same = sum(bool(torch.equal(on[1][n], g)) for n, g in off[1].items())
+    log(f"{what}, float32, deterministic adds, remat on vs off: loss "
+        f"{on[0]:.7f} vs {off[0]:.7f} (relative {loss_d:.2e}); {same} of "
+        f"{len(off[1])} gradients equal, the worst at {worst:.4f} of "
+        f"check_small_train's tolerance ({name}); running statistics at "
+        f"{stats:.4f} of theirs; ops without a deterministic version: "
+        f"{nondet or 'none'}")
+    if not (loss_d <= TRAIN_LOSS_RTOL and worst <= 1.0 and stats <= 1.0):
+        raise AssertionError(f"{what}: remat changes the loss, a gradient "
+                             "or the running statistics at full width")
+
+
 def run_training(cfg, kernels, x_init, part, dev):
-    """Diffusion training at full width; returns the kernels' launches over
-    the timed steps."""
+    """Diffusion training at full width, batch 1: one step with remat off
+    and on compared (`compare_remat`), then the timed steps of each, the
+    remat run last. Returns the remat run's launches over its timed
+    steps."""
     import torch
     from lidiff_tpu_torch.models import diffusion
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    task = diffusion.DiffusionTask(cfg, device=dev,
-                                   compute_dtype=torch.bfloat16, seed=0)
+
+    def make_task(remat, dtype=torch.bfloat16):
+        return diffusion.DiffusionTask(
+            {**cfg, "tpu": {**cfg["tpu"], "remat": remat}}, device=dev,
+            compute_dtype=dtype, seed=0)
+
+    batch = {"pcd_full": x_init, "pcd_part": part}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    draws = {"noise": torch.randn(x_init.shape, generator=gen, device=dev),
+             "t": torch.tensor([500], device=dev), "drop": False}
+    compare_remat(lambda r: make_task(r, torch.float32), batch, draws,
+                  "training")
+    log(f"training: {N_PART * TILE} points, batch 1, bf16 compute with "
+        "float32 activations, lr 1e-4")
+    for remat in (False, True):
+        task = make_task(remat)
+        launches = diffusion_steps(task, cfg, batch, kernels, dev,
+                                      "training" + ("" if remat else
+                                                    ", remat off"),
+                                      remat, profile=remat)
+        del task
+    return launches
+
+
+def diffusion_steps(task, cfg, batch, kernels, dev, what: str, remat: bool,
+                    profile: bool = True, draws=None):
+    """`train_steps` of the diffusion task, with the launches per step that
+    its convs give (A1 once more for each stage conv with remat) and no
+    overflow."""
+    import torch
     overflow = []
 
     def describe(m):
         overflow.append(int(m["overflow_vox"]))
         return f"loss {float(m['loss']):.4f}, overflow {overflow[-1]}"
 
-    log(f"training: {N_PART * TILE} points, batch 1, bf16 compute with "
-        "float32 activations, lr 1e-4")
-    launches = train_steps(
-        task, cfg, {"pcd_full": x_init, "pcd_part": part},
-        torch.Generator(device=dev).manual_seed(3), kernels, dev, "training",
-        "loss", {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
-                 "A1": 2 * CONVS_PER_STEP - 2, "C1": 5, "C1 index": 1},
-        describe)
+    extra = stage_convs(task.model) if remat else 0
+    out = train_steps(
+        task, cfg, batch, torch.Generator(device=dev).manual_seed(3),
+        kernels, dev, what, "loss",
+        {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
+         "A1": 2 * CONVS_PER_STEP - 2 + extra, "C1": 5, "C1 index": 1},
+        describe, draws=draws, profile=profile)
     if any(overflow):
-        raise AssertionError("capacity overflow on the training input")
-    return launches
+        raise AssertionError(f"{what}: capacity overflow on the input")
+    return out
 
 
-def _host_syncs(fn):
-    """(fn(), the number of calls in it that made the host wait for the
-    card) by torch's CUDA sync debug mode; 0 off the card."""
+def batch_cfg(cfg, n: int) -> dict:
+    """`cfg` for a batch of n: every capacity n times the one-item value
+    (both packages quantize a batch's points into one set of voxels)."""
+    tpu = dict(cfg["tpu"])
+    for key in ("full_capacities", "part_capacities"):
+        if key in tpu:
+            tpu[key] = [n * c for c in tpu[key]]
+    return {**cfg, "tpu": tpu, "train": {**cfg["train"], "batch_size": n}}
+
+
+def run_training_batch(cfg, kernels, dev, n: int = DIFF_BATCH):
+    """Diffusion training at the config's batch size with remat: n ring
+    scans (the first the batch-1 scan), the capacities n times the
+    one-item ones, zero overflow. The classifier-free coin is held off:
+    set, it zeroes the partial scans, and with two items train BatchNorm
+    over equal voxels gives NaN encoder gradients in both packages
+    (ROADMAP.md Queue C)."""
+    import numpy as np
+    import torch
+    from lidiff_tpu_torch.models import diffusion
+    bcfg = batch_cfg(cfg, n)
+    part = torch.from_numpy(np.concatenate(
+        [ring_scan(N_PART, seed=s) for s in range(n)])).to(dev)
+    task = diffusion.DiffusionTask(bcfg, device=dev,
+                                   compute_dtype=torch.bfloat16, seed=0)
+    log(f"training at batch {n}: {n} x {N_PART * TILE} points, capacities "
+        f"full {bcfg['tpu']['full_capacities']} part "
+        f"{bcfg['tpu']['part_capacities']}, remat on, the coin held off")
+    return diffusion_steps(
+        task, bcfg, {"pcd_full": part.repeat(1, TILE, 1), "pcd_part": part},
+        kernels, dev, f"training at batch {n}", True, profile=False,
+        draws={"drop": False})
+
+
+def _host_syncs(fn, stacks: bool = False):
+    """(fn(), the calls in it that made the host wait for the card, by
+    torch's CUDA sync debug mode: a Counter of "file:line" of the port's
+    frame nearest each sync on its stack, else of the innermost frame
+    outside torch); (fn(), an empty Counter) off the card. A sync's warning
+    carries only its innermost Python frame, which may be torch's own.
+    `stacks` logs the whole stack of a sync with no port frame on it."""
+    import collections
+    import traceback
     import warnings
 
     import torch
+    where = collections.Counter()
     if not torch.cuda.is_available():
-        return fn(), 0
-    with warnings.catch_warnings(record=True) as seen:
+        return fn(), where
+    port = os.sep + "lidiff_tpu_torch" + os.sep
+    torch_dir = os.path.dirname(torch.__file__)
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        ours = [f for f in stack if port in f.filename]
+        frame = (ours or [f for f in stack if not f.filename.startswith(
+            torch_dir)] or stack)[-1]
+        where[f"{os.path.relpath(frame.filename, ROOT)}:{frame.lineno}"] += 1
+        if stacks and not ours:
+            log("a host sync with no port frame on its stack:\n"
+                + "".join(traceback.format_list(stack)))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in seen)
+    return out, where
+
+
+def _collectives(fn):
+    """(fn(), the number of all-reduces it issued): every collective of
+    the port is a `torch.distributed.all_reduce` (`parallel/mesh.py`)."""
+    import torch.distributed as dist
+    calls = 0
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        nonlocal calls
+        calls += 1
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        return fn(), calls
+    finally:
+        dist.all_reduce = all_reduce
 
 
 def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
@@ -1147,10 +1366,13 @@ def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
     float32 step through the distributed trainer (synced BN, the
     regularizer over the group, averaged gradients) against
     `Trainer.train_step` without a group, the same weights and draws,
-    within check_small_train's tolerances; then TRAIN_WARMUP + TRAIN_STEPS
-    full-width diffusion steps without and with the group, each step timed
-    by `prof.block_and_time` (host clock to the card's finish) with its
-    host syncs."""
+    within check_small_train's tolerances, with its collectives counted
+    with remat on and off (remat adds one all-reduce per BatchNorm inside
+    a stage: the recompute's moments); then TRAIN_WARMUP + TRAIN_STEPS
+    full-width diffusion steps (remat on) without and with the group, each
+    step timed by `prof.block_and_time` (host clock to the card's finish)
+    with its host syncs (at most 2 a step, every one counted: the
+    recompute adds none) and collectives."""
     import numpy as np
     import torch
     from lidiff_tpu_torch.parallel import mesh
@@ -1171,17 +1393,34 @@ def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
         draws = {"noise": torch.from_numpy(rng.normal(size=f_np.shape).astype(
                      np.float32)).to(dev),
                  "t": torch.tensor([700, 150], device=dev), "drop": False}
-        out = {}
+        out, calls = {}, {}
         with tempfile.TemporaryDirectory() as exp:
-            for name, g in (("plain", None), ("distributed", group)):
-                task = diffusion.DiffusionTask(small, device=dev, seed=2,
+            for name, g, remat in (("plain", None, True),
+                                   ("distributed", group, True),
+                                   ("distributed, remat off", group, False)):
+                scfg = {**small, "tpu": {**small["tpu"], "remat": remat}}
+                task = diffusion.DiffusionTask(scfg, device=dev, seed=2,
                                                compute_dtype=torch.float32,
                                                group=g)
-                m = Trainer(task, small, exp, group=g).train_step(batch,
-                                                                  **draws)
+                m, calls[name] = _collectives(lambda: Trainer(
+                    task, scfg, exp, group=g).train_step(batch, **draws))
                 out[name] = (float(m["loss"]), {n: p.grad.cpu() for n, p in
                                                 task.model.named_parameters()})
         (l_ref, g_ref), (l_ddp, g_ddp) = out["plain"], out["distributed"]
+        from lidiff_tpu_torch.models.blocks import (DownStage,
+                                                    MaskedBatchNorm, UpStage)
+        stage_bns = sum(1 for st in task.model.modules()
+                        if isinstance(st, (DownStage, UpStage))
+                        for m in st.modules()
+                        if isinstance(m, MaskedBatchNorm))
+        log(f"world-1 {backend} collectives a step: "
+            f"{calls['distributed']} with remat, "
+            f"{calls['distributed, remat off']} without; {stage_bns} "
+            f"BatchNorms inside the stages")
+        if calls["plain"] or calls["distributed"] - \
+                calls["distributed, remat off"] != stage_bns:
+            raise AssertionError("remat should add one all-reduce per "
+                                 "BatchNorm inside a stage")
         top = max(float(g.abs().max()) for g in g_ref.values())
         worst, worst_name = 0.0, ""
         for n, ref in g_ref.items():
@@ -1214,22 +1453,29 @@ def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
                     trainer.train_step(full, gen)
                 # the step's host syncs counted inside, the wait for the
                 # card's finish outside
-                steps = [prof.block_and_time(
-                    _host_syncs, lambda: trainer.train_step(full, gen))
+                steps = [prof.block_and_time(_collectives, lambda: _host_syncs(
+                    lambda: trainer.train_step(full, gen), stacks=True))
                     for _ in range(TRAIN_STEPS)]
-            times[name] = [(s * 1e3, n, float(m["loss"]))
-                           for (m, n), s in steps]
+            times[name] = [(s * 1e3, n, c, float(m["loss"]))
+                           for ((m, n), c), s in steps]
             if dev == "cuda" and g is not None:
                 profile_step(lambda: trainer.train_step(full, gen),
                              "one world-1 distributed training step")
             del task, trainer
         for name, rows in times.items():
-            log(f"world-1 training step at full width, {name}: " + "; ".join(
-                f"{ms:.1f} ms, {n} host syncs, loss {loss:.4f}"
-                for ms, n, loss in rows))
-        if not all(math.isfinite(r[2]) for rows in times.values()
+            log(f"world-1 training step at full width, remat on, {name}: "
+                + "; ".join(f"{ms:.1f} ms, {sum(n.values())} host syncs "
+                            f"{dict(n)}, {c} collectives, loss {loss:.4f}"
+                            for ms, n, c, loss in rows))
+        if not all(math.isfinite(r[3]) for rows in times.values()
                    for r in rows):
             raise AssertionError("world-1 training: a loss is not finite")
+        # every sync of the step counts: the two are the bank index's build
+        # (ops/knn.py); the recompute adds none
+        if any(sum(r[1].values()) > 2 for rows in times.values()
+               for r in rows):
+            raise AssertionError("world-1 training: more than 2 host syncs "
+                                 "in a step")
     finally:
         mesh.shutdown()
 
@@ -1493,8 +1739,11 @@ def check_small_refine_train(cfg_mod, dev):
     gt = np.concatenate([clean, jittered(clean, 6), jittered(clean, 7)], 1)
     out, tape, differ = {}, [], {}
     for d in (dev, "cpu"):
+        # without remat: its recompute, in the backward pass, would call
+        # the ReLUs again after the choices are restored
+        # (compare_remat holds remat to this step without it)
         task = refine.RefineTask(cfg, device=d, compute_dtype=torch.float32,
-                                 seed=2)
+                                 seed=2, remat=False)
         with discrete_choices(tape, bool(tape), differ):
             loss, _ = task.loss_fn(
                 {"pcd_noise": torch.from_numpy(noisy).to(d),
@@ -1525,9 +1774,12 @@ def check_small_refine_train(cfg_mod, dev):
                                  f"{kind} of the refiner's step")
 
 
-def refine_inputs(cfg, dev):
-    """The refiner's task (`MinkUNet` with 18 output channels, full width)
-    and batch: 180k jittered points and a 360k-point target."""
+def refine_inputs(cfg, dev, n_items: int = 1, remat: bool = True):
+    """The refiner's task (`MinkUNet` with 18 output channels, full width,
+    `remat`) and batch: n_items x 180k jittered points against n_items x
+    360k-point targets (item 0 the same at every batch size), the
+    capacities n_items times the one-item ones."""
+    import numpy as np
     import torch
     from lidiff_tpu_torch import config as cfg_mod
     from lidiff_tpu_torch.models import refine
@@ -1537,18 +1789,24 @@ def refine_inputs(cfg, dev):
     # target point's twin at distance 0 and flatter the match); every level
     # gets the full point count, as the diffusion phases do: no voxel is
     # dropped
-    rcfg = cfg_mod.finalize_config(make_refine_cfg(
-        n, cfg["model"]["cr"], REFINE_UP, {"capacity_fractions": [1.0] * 5}))
+    rcfg = batch_cfg(cfg_mod.finalize_config(make_refine_cfg(
+        n, cfg["model"]["cr"], REFINE_UP,
+        {"capacity_fractions": [1.0] * 5})), n_items)
     task = refine.RefineTask(rcfg, device=dev, compute_dtype=torch.bfloat16,
-                             seed=0)
-    noisy = torch.from_numpy(jittered(ring_scan(n, seed=31), 32)).to(dev)
-    gt = torch.from_numpy(ring_scan(2 * n, seed=33)).to(dev)
+                             seed=0, remat=remat)
+    noisy = torch.from_numpy(np.concatenate(
+        [jittered(ring_scan(n, seed=31 + 3 * i), 32 + 3 * i)
+         for i in range(n_items)])).to(dev)
+    gt = torch.from_numpy(np.concatenate(
+        [ring_scan(2 * n, seed=33 + 3 * i) for i in range(n_items)])).to(dev)
     pyr = task.pyramid(noisy)
     ovf = [int(v) for v in pyr.overflows()]
-    log(f"refiner: capacities {rcfg['tpu']['full_capacities']}; voxels per "
-        f"level {[int(l.geom.num) for l in pyr.levels]}; overflow {ovf}")
+    log(f"refiner at batch {n_items}: capacities "
+        f"{rcfg['tpu']['full_capacities']}; voxels per level "
+        f"{[int(l.geom.num) for l in pyr.levels]}; overflow {ovf}")
     if any(ovf):
         raise AssertionError("capacity overflow on the refiner's input")
+    del pyr
     return rcfg, task, noisy, gt
 
 
@@ -1571,17 +1829,14 @@ def run_refine(cfg, kernels, dev):
     """The refiner at full width: `MinkUNet` with 18 output channels, 180k
     jittered points, 1.08M upsampled points against a 360k-point target.
     First C2 at that shape, both directions, on the clouds of this very
-    step (`chamfer_match_inputs`); then TRAIN_WARMUP + TRAIN_STEPS
-    optimizer steps. Returns (C2's results, the kernels' launches over the
-    timed steps)."""
+    step (`chamfer_match_inputs`); then one step with remat off and on
+    compared (`compare_remat`) and the timed steps of each, the remat run
+    last. Returns (C2's results, the remat run's launches over its timed
+    steps)."""
     import torch
     from lidiff_tpu_torch.models import refine
-    from lidiff_tpu_torch.models.blocks import SparseConv
     from lidiff_tpu_torch.ops import chamfer, knn
     cuda = dev == "cuda"
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
     n = N_PART * TILE
     rcfg, task, noisy, gt = refine_inputs(cfg, dev)
 
@@ -1635,20 +1890,57 @@ def run_refine(cfg, kernels, dev):
                     f"rest of the chamfer {loss - idx:.1f}")
         return undo, split
 
-    convs = sum(1 for m in task.model.modules()
-                if isinstance(m, SparseConv) and m.kernel.shape[0] == 27)
+    del task
+
+    def make_task(remat, dtype=torch.bfloat16):
+        return refine.RefineTask(rcfg, device=dev, compute_dtype=dtype,
+                                 seed=0, remat=remat)
+
+    compare_remat(lambda r: make_task(r, torch.float32),
+                  {"pcd_noise": noisy, "pcd_full": gt}, {},
+                  "refiner training")
     log(f"refiner training: {n} points -> {n * REFINE_UP} upsampled against "
         f"a {2 * n}-point target, batch 1, bf16 compute with float32 "
-        f"activations, lr 1e-4; {convs} column convs")
-    # every column conv but the first (its input needs no gradient) has a
-    # feats gradient; one pyramid of 5 levels; one match per direction
-    launches = train_steps(
-        task, rcfg, {"pcd_noise": noisy, "pcd_full": gt}, None, kernels, dev,
-        "refiner training", "cd_loss",
-        {"A3": convs, "A2": convs - 1, "A1": 2 * convs - 1, "B1": 5, "C2": 2,
-         "C1": 0},
-        lambda m: f"cd_loss {float(m['cd_loss']):.4f}", instrument)
+        f"activations, lr 1e-4")
+    for remat in (False, True):
+        task = make_task(remat)
+        launches = refine_steps(
+            task, rcfg, {"pcd_noise": noisy, "pcd_full": gt}, kernels, dev,
+            "refiner training" + ("" if remat else ", remat off"), remat,
+            instrument, profile=remat)
+        del task
     return c2, launches
+
+
+def refine_steps(task, rcfg, batch, kernels, dev, what: str, remat: bool,
+                 instrument=None, profile: bool = True):
+    """`train_steps` of the refiner, with the launches per step that its
+    convs give: every column conv but the first (its input needs no
+    gradient) has a feats gradient, and with remat A1 runs once more for
+    each stage conv; one pyramid of 5 levels; one match per direction."""
+    from lidiff_tpu_torch.models.blocks import SparseConv
+    convs = sum(1 for m in task.model.modules()
+                if isinstance(m, SparseConv) and m.kernel.shape[0] == 27)
+    extra = stage_convs(task.model) if remat else 0
+    return train_steps(
+        task, rcfg, batch, None, kernels, dev, what, "cd_loss",
+        {"A3": convs, "A2": convs - 1, "A1": 2 * convs - 1 + extra,
+         "B1": 5, "C2": 2, "C1": 0},
+        lambda m: f"cd_loss {float(m['cd_loss']):.4f}", instrument,
+        profile=profile)
+
+
+def run_refine_batch(cfg, kernels, dev, n: int = REFINE_BATCH):
+    """The refiner at the config's batch size with remat: n items of 180k
+    jittered points against 360k-point targets, C2 over all n items at
+    once (`n_batch` n). Returns its launches over the timed steps."""
+    rcfg, task, noisy, gt = refine_inputs(cfg, dev, n)
+    log(f"refiner training at batch {n}: {n} x {N_PART * TILE} points -> "
+        f"{n} x {N_PART * TILE * REFINE_UP} upsampled against {n} x "
+        f"{2 * N_PART * TILE}-point targets, remat on")
+    return refine_steps(task, rcfg, {"pcd_noise": noisy, "pcd_full": gt},
+                        kernels, dev, f"refiner training at batch {n}", True,
+                        profile=False)
 
 
 def run_refine_cli(dev: str, tmp: str) -> None:
@@ -2244,7 +2536,11 @@ def main(argv=None) -> int:
             ("sampling", ("A1", "B1", "B1 taps", "C1")),
             ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1")),
             ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1")),
+            (f"training at batch {DIFF_BATCH}",
+             ("A1", "A2", "A3", "B1", "B1 taps", "C1")),
             ("refiner training", ("A1", "A2", "A3", "B1", "B1 taps", "C2")),
+            (f"refiner training at batch {REFINE_BATCH}",
+             ("A1", "A2", "A3", "B1", "B1 taps", "C2")),
             ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1"))):
         for n in names:
             if paths[path][n] == 0:

@@ -55,6 +55,7 @@ DEFAULT_TPU = {
     "capacity_fractions": None,  # per-level fractions of num_points
     "num_levels": 5,
     "compute_dtype": "float32",  # or "bfloat16" for the fast path
+    "remat": True,               # recompute the UNet stages in training
 }
 
 

@@ -1,5 +1,6 @@
-"""DDPM coefficient tables (counterpart of lidiff_tpu/diffusion/ddpm.py):
-built in float64, stored as float32 tensors."""
+"""DDPM coefficient tables, q-sampling and the ancestral sampling step
+(counterpart of lidiff_tpu/diffusion/ddpm.py): the tables are built in
+float64 and stored as float32 tensors."""
 
 from __future__ import annotations
 
@@ -70,3 +71,20 @@ def q_sample(coeffs: DDPMCoeffs, x: torch.Tensor, t: torch.Tensor,
     sa = coeffs.sqrt_alphas_cumprod[t][:, None, None]
     so = coeffs.sqrt_one_minus_alphas_cumprod[t][:, None, None]
     return sa * x + so * noise
+
+
+def p_step(coeffs: DDPMCoeffs, x_t: torch.Tensor, eps_pred: torch.Tensor,
+           t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """One ancestral (posterior) DDPM step in offset space, x_t [B, N, 3]
+    at timesteps t [B]: 1/sqrt(a_t) (x_t - beta_t / sqrt(1 - abar_t) eps)
+    + sigma_t z, without the noise term where t = 0. `noise` is the
+    standard normal z (drawn by the caller, as JAX's p_step takes it;
+    lidiff_tpu/diffusion/ddpm.py:75)."""
+    t = t.long()
+    b = coeffs.betas[t][:, None, None]
+    sra = coeffs.sqrt_recip_alphas[t][:, None, None]
+    so = coeffs.sqrt_one_minus_alphas_cumprod[t][:, None, None]
+    mean = sra * (x_t - b / so * eps_pred)
+    sig = torch.sqrt(coeffs.posterior_variance[t])[:, None, None]
+    keep = (t > 0).to(x_t.dtype)[:, None, None]
+    return mean + keep * sig * noise

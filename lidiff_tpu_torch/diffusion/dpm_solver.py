@@ -1,6 +1,7 @@
 """DPM-Solver++(2M) with SDE noise injection (the reference's
 'sde-dpmsolver++') or without it ('dpmsolver++'), as an eager multistep
-state machine (counterpart of lidiff_tpu/diffusion/dpm_solver.py:68-157).
+state machine and the loop that drives it (counterpart of
+lidiff_tpu/diffusion/dpm_solver.py:68-185).
 
 Update rules (h = lam_next - lam_cur, lam = log(alpha / sigma)), with the
 epsilon prediction converted to x0 first:
@@ -106,3 +107,24 @@ def solver_step(solver: DPMSolver, state: SolverState,
         d1 = (m0 - state.prev_m) / torch.where(r == 0, 1.0, r)
         x = x + 0.5 * a_n * one_m * d1
     return SolverState(sample=x, prev_m=m0, prev_lambda=l_c, step=i + 1)
+
+
+def sample_loop(solver: DPMSolver, x_init: torch.Tensor, eps_fn,
+                generator: torch.Generator | None = None, *,
+                noise=None) -> torch.Tensor:
+    """Run every step of the solver from `x_init` (offset space, any shape)
+    and return the final sample (lidiff_tpu/diffusion/dpm_solver.py:160).
+    eps_fn(sample, t) is the noise prediction at timestep t (an int). Each
+    step's standard normal comes from `generator` (on x_init's device), or
+    from `noise` ([S, *x_init.shape]: the i-th step takes noise[i]), so
+    tests can feed the z that JAX draws from its key."""
+    if noise is None and generator is None:
+        raise ValueError("pass a torch.Generator or the noise of every step")
+    state = init_state(x_init)
+    for i in range(solver.num_steps):
+        eps = eps_fn(state.sample, int(solver.timesteps[i]))
+        z = noise[i] if noise is not None else torch.randn(
+            x_init.shape, generator=generator, device=x_init.device,
+            dtype=x_init.dtype)
+        state = solver_step(solver, state, eps, z)
+    return state.sample

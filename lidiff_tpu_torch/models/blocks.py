@@ -13,15 +13,20 @@ the other, the convs differentiate through `Conv3ColumnsFunction`, and a
 group count above 1 raises: grouped BatchNorm is inference-only.
 `conv_quant` selects the int8 eval conv (kernel A4) for the 27-tap convs
 with a folded BN in eval mode (see `sparse_conv_columns` for the gate).
+`remat` runs a stage under activation checkpointing: its activations are
+recomputed in the backward pass, and its BatchNorm running statistics move
+in the first forward only.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lidiff_tpu_torch.ops.grid import ColumnKernelMap, DownMap, LevelGeom
 from lidiff_tpu_torch.ops.sparse_conv import (masked_moments,
@@ -78,11 +83,38 @@ class SparseConvTranspose(nn.Module):
                                      compute_dtype=self.compute_dtype)
 
 
+# True while `remat` recomputes a stage's forward in the backward pass
+_RECOMPUTING = contextvars.ContextVar("lidiff_recomputing", default=False)
+
+
+def remat(stage: nn.Module, *args):
+    """stage(*args) under non-reentrant activation checkpointing (the
+    counterpart of nn.remat in lidiff_tpu/models/minkunet.py:47-56): the
+    stage keeps only its inputs, and the backward pass runs its forward
+    again to get the tensors its gradient needs. The recompute leaves the
+    BatchNorm running statistics as the first forward left them, as JAX
+    keeps the first forward's `batch_stats`. Nothing in a stage draws
+    random numbers, so no RNG state is stashed."""
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        token = _RECOMPUTING.set(calls > 0)
+        calls += 1
+        try:
+            return stage(*a)
+        finally:
+            _RECOMPUTING.reset(token)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid voxels, torch BatchNorm1d semantics: in train
     mode the batch's biased variance normalizes and the running estimates
-    take the unbiased one with momentum 0.1; in eval mode the running
-    statistics normalize."""
+    take the unbiased one with momentum 0.1 (not while `remat` recomputes
+    the forward); in eval mode the running statistics normalize."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -106,11 +138,12 @@ class MaskedBatchNorm(nn.Module):
                 raise ValueError("grouped BatchNorm is inference-only")
             # the gradient flows through the batch moments
             mean, var, cnt = masked_moments(feats, mask, self.group)
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
-                self.mean.copy_((1 - m) * self.mean + m * mean)
-                self.var.copy_((1 - m) * self.var + m * unbiased)
+            if not _RECOMPUTING.get():
+                with torch.no_grad():
+                    m = self.momentum
+                    unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                    self.mean.copy_((1 - m) * self.mean + m * mean)
+                    self.var.copy_((1 - m) * self.var + m * unbiased)
         else:
             mean, var = self.mean.repeat(groups), self.var.repeat(groups)
         scale, bias = self.scale.repeat(groups), self.bias.repeat(groups)

@@ -34,13 +34,17 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 class DiffusionModel(nn.Module):
     """Partial-scan encoder + conditional denoiser; parameter names follow
-    the JAX tree (`partial_enc`, `denoiser`)."""
+    the JAX tree (`partial_enc`, `denoiser`). `remat`: both recompute their
+    stages' activations in the backward pass (`blocks.remat`)."""
 
     def __init__(self, out_dim: int = 96, cr: float = 1.0,
-                 compute_dtype=torch.float32, conv_quant: bool = False):
+                 compute_dtype=torch.float32, conv_quant: bool = False,
+                 remat: bool = True):
         super().__init__()
-        self.partial_enc = MinkGlobalEnc(cr, compute_dtype, conv_quant)
-        self.denoiser = MinkUNetDiff(out_dim, cr, compute_dtype, conv_quant)
+        self.partial_enc = MinkGlobalEnc(cr, compute_dtype, conv_quant,
+                                         remat)
+        self.denoiser = MinkUNetDiff(out_dim, cr, compute_dtype, conv_quant,
+                                     remat)
 
     def encode_partial(self, pyr_part: Pyramid):
         return self.partial_enc(pyr_part)
@@ -82,7 +86,10 @@ class DiffusionTask:
     process alone); the rest of the loss, the classifier-free coin and the
     mean/std regularizer included, is each rank's own on its rows, as each
     replica's is in lidiff_tpu/parallel/mesh.py. `conv_quant` selects the
-    int8 eval conv (kernel A4) for sampling; training never quantizes."""
+    int8 eval conv (kernel A4) for sampling; training never quantizes.
+    The config's `tpu.remat` (default True, as lidiff_tpu/models/
+    diffusion.py:93 reads it) recomputes the stages' activations in the
+    backward pass of training."""
 
     def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0,
                  conv_quant: bool = False, group=None):
@@ -105,7 +112,9 @@ class DiffusionTask:
         self.model = DiffusionModel(out_dim=cfg["model"]["out_dim"],
                                     cr=float(cfg["model"].get("cr", 1.0)),
                                     compute_dtype=compute_dtype,
-                                    conv_quant=conv_quant)
+                                    conv_quant=conv_quant,
+                                    remat=bool(cfg["tpu"].get("remat",
+                                                              True)))
         init_weights(self.model, torch.Generator().manual_seed(seed))
         set_bn_group(self.model, group)
         self.model.to(self.device).eval()

@@ -2,8 +2,14 @@
 the partial-scan encoder `MinkGlobalEnc`, the conditional denoiser
 `MinkUNetDiff` and the refiner's unconditional `MinkUNet`. In train mode
 (`module.training`) the activations stay float32 and only the convs and
-GEMMs cast to the compute dtype; nothing is rematerialized in the backward
-pass (`tpu.remat` of the config is read by nobody here).
+GEMMs cast to the compute dtype. With `remat` (the default, as in the JAX
+modules; `tpu.remat` of the diffusion config) training runs every
+`DownStage` and `UpStage` under activation checkpointing
+(`blocks.remat`): the backward pass recomputes each stage's activations
+from its input. The stem, the conditioning gates, the 1-NN matches, the
+slice back to the points and the head keep theirs, as in
+lidiff_tpu/models/minkunet.py:69,157-159,240-242. Eval mode never
+rematerializes.
 
 Channel plan cs = [32, 32, 64, 128, 256, 256, 128, 96, 96] scaled by `cr`.
 `conv_quant` selects the int8 eval conv (kernel A4) for every eval column
@@ -18,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lidiff_tpu_torch.models.blocks import MLP, DownStage, Stem, UpStage
+from lidiff_tpu_torch.models.blocks import (MLP, DownStage, Stem, UpStage,
+                                           remat)
 from lidiff_tpu_torch.ops.grid import Pyramid, VoxelGeom, slice_to_points
 from lidiff_tpu_torch.ops.knn import match_features
 
@@ -42,14 +49,25 @@ def _channels(cr: float) -> list[int]:
     return [int(cr * c) for c in CS]
 
 
-class MinkGlobalEnc(nn.Module):
+class _Stages(nn.Module):
+    """Runs the `DownStage`s and `UpStage`s: under `remat` in train mode
+    when `self.remat` is set, as they are otherwise."""
+
+    def stage(self, stage: nn.Module, *args):
+        if self.remat and self.training:
+            return remat(stage, *args)
+        return stage(*args)
+
+
+class MinkGlobalEnc(_Stages):
     """Partial-scan encoder: stem + 4 down stages -> stage-4 features."""
 
     def __init__(self, cr: float = 1.0, compute_dtype=torch.float32,
-                 conv_quant: bool = False):
+                 conv_quant: bool = False, remat: bool = True):
         super().__init__()
         cs = _channels(cr)
         cd, cq = compute_dtype, conv_quant
+        self.remat = remat
         self.Stem_0 = Stem(3, cs[0], cd, cq)
         self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd, cq)
         self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd, cq)
@@ -61,10 +79,10 @@ class MinkGlobalEnc(nn.Module):
         # to the compute dtype (as lidiff_tpu/models/minkunet.py:70)
         lv = pyr.levels
         x = self.Stem_0(pyr.vox_feats, lv[0], 1)
-        x = self.DownStage_0(x, lv[0], lv[1], 1)
-        x = self.DownStage_1(x, lv[1], lv[2], 1)
-        x = self.DownStage_2(x, lv[2], lv[3], 1)
-        return self.DownStage_3(x, lv[3], lv[4], 1)   # [V4, cs4]
+        x = self.stage(self.DownStage_0, x, lv[0], lv[1], 1)
+        x = self.stage(self.DownStage_1, x, lv[1], lv[2], 1)
+        x = self.stage(self.DownStage_2, x, lv[2], lv[3], 1)
+        return self.stage(self.DownStage_3, x, lv[3], lv[4], 1)  # [V4, cs4]
 
 
 class StageGate(nn.Module):
@@ -103,17 +121,19 @@ class StageGate(nn.Module):
                 * w.reshape(V, groups, -1)).reshape(V, -1)
 
 
-class MinkUNetDiff(nn.Module):
+class MinkUNetDiff(_Stages):
     """Conditional denoiser; per-point noise prediction [B, N, 3], or
     [B, N, G, 3] for G conditioning banks fused into one grouped pass."""
 
     def __init__(self, out_dim: int = 96, cr: float = 1.0,
-                 compute_dtype=torch.float32, conv_quant: bool = False):
+                 compute_dtype=torch.float32, conv_quant: bool = False,
+                 remat: bool = True):
         super().__init__()
         cs = _channels(cr)
         cd, cq = compute_dtype, conv_quant
         self.out_dim = out_dim
         self.compute_dtype = cd
+        self.remat = remat
 
         def gate(out, hidden, swap=False):
             return StageGate(out, hidden, cs[4], out_dim, swap, cd)
@@ -168,22 +188,22 @@ class MinkUNetDiff(nn.Module):
         x0 = self.Stem_0(vox_feats, lv[0])
         x0 = x0.repeat(1, G)
         g0 = self.gate_s1(x0, lv[0].geom, match[0], temp, G)
-        x1 = self.DownStage_0(g0, lv[0], lv[1], G)
+        x1 = self.stage(self.DownStage_0, g0, lv[0], lv[1], G)
         g1 = self.gate_s2(x1, lv[1].geom, match[1], temp, G)
-        x2 = self.DownStage_1(g1, lv[1], lv[2], G)
+        x2 = self.stage(self.DownStage_1, g1, lv[1], lv[2], G)
         g2 = self.gate_s3(x2, lv[2].geom, match[2], temp, G)
-        x3 = self.DownStage_2(g2, lv[2], lv[3], G)
+        x3 = self.stage(self.DownStage_2, g2, lv[2], lv[3], G)
         g3 = self.gate_s4(x3, lv[3].geom, match[3], temp, G)
-        x4 = self.DownStage_3(g3, lv[3], lv[4], G)
+        x4 = self.stage(self.DownStage_3, g3, lv[3], lv[4], G)
 
         g4 = self.gate_u1(x4, lv[4].geom, match[4], temp, G)
-        y1 = self.UpStage_0(g4, x3, lv[3], G)
+        y1 = self.stage(self.UpStage_0, g4, x3, lv[3], G)
         g5 = self.gate_u2(y1, lv[3].geom, match[3], temp, G)
-        y2 = self.UpStage_1(g5, x2, lv[2], G)
+        y2 = self.stage(self.UpStage_1, g5, x2, lv[2], G)
         g6 = self.gate_u3(y2, lv[2].geom, match[2], temp, G)
-        y3 = self.UpStage_2(g6, x1, lv[1], G)
+        y3 = self.stage(self.UpStage_2, g6, x1, lv[1], G)
         g7 = self.gate_u4(y3, lv[1].geom, match[1], temp, G)
-        y4 = self.UpStage_3(g7, x0, lv[0], G)
+        y4 = self.stage(self.UpStage_3, g7, x0, lv[0], G)
 
         pt = slice_to_points(y4, pyr.point2voxel)         # [B, N, G*C]
         if G > 1:
@@ -191,17 +211,19 @@ class MinkUNetDiff(nn.Module):
         return self.head(pt)
 
 
-class MinkUNet(nn.Module):
+class MinkUNet(_Stages):
     """Unconditional UNet of the refiner: per-point head Linear ->
     LeakyReLU -> Linear -> Tanh with out_channels = 3 * up_factor; returns
     [B, N, out_channels] float32."""
 
     def __init__(self, out_channels: int = 18, cr: float = 1.0,
-                 compute_dtype=torch.float32, conv_quant: bool = False):
+                 compute_dtype=torch.float32, conv_quant: bool = False,
+                 remat: bool = True):
         super().__init__()
         cs = _channels(cr)
         cd, cq = compute_dtype, conv_quant
         self.compute_dtype = cd
+        self.remat = remat
         self.Stem_0 = Stem(3, cs[0], cd, cq)
         self.DownStage_0 = DownStage(cs[0], cs[0], cs[1], cd, cq)
         self.DownStage_1 = DownStage(cs[1], cs[1], cs[2], cd, cq)
@@ -221,12 +243,12 @@ class MinkUNet(nn.Module):
         if not self.training:
             vox_feats = vox_feats.to(self.compute_dtype)
         x0 = self.Stem_0(vox_feats, lv[0])
-        x1 = self.DownStage_0(x0, lv[0], lv[1], 1)
-        x2 = self.DownStage_1(x1, lv[1], lv[2], 1)
-        x3 = self.DownStage_2(x2, lv[2], lv[3], 1)
-        x4 = self.DownStage_3(x3, lv[3], lv[4], 1)
-        y1 = self.UpStage_0(x4, x3, lv[3], 1)
-        y2 = self.UpStage_1(y1, x2, lv[2], 1)
-        y3 = self.UpStage_2(y2, x1, lv[1], 1)
-        y4 = self.UpStage_3(y3, x0, lv[0], 1)
+        x1 = self.stage(self.DownStage_0, x0, lv[0], lv[1], 1)
+        x2 = self.stage(self.DownStage_1, x1, lv[1], lv[2], 1)
+        x3 = self.stage(self.DownStage_2, x2, lv[2], lv[3], 1)
+        x4 = self.stage(self.DownStage_3, x3, lv[3], lv[4], 1)
+        y1 = self.stage(self.UpStage_0, x4, x3, lv[3], 1)
+        y2 = self.stage(self.UpStage_1, y1, x2, lv[2], 1)
+        y3 = self.stage(self.UpStage_2, y2, x1, lv[1], 1)
+        y4 = self.stage(self.UpStage_3, y3, x0, lv[0], 1)
         return torch.tanh(self.head(slice_to_points(y4, pyr.point2voxel)))

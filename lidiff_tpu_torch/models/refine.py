@@ -25,10 +25,13 @@ class RefineTask:
     with a JAX checkpoint's. `group`, a torch.distributed process group,
     syncs the training BatchNorm moments over its ranks (None: this
     process alone). `conv_quant` selects the int8 eval conv
-    (kernel A4) for `forward`; training never quantizes."""
+    (kernel A4) for `forward`; training never quantizes. `remat` (default
+    True, the JAX `MinkUNet`'s default: the JAX refiner reads no config key
+    for it) recomputes the stages' activations in the backward pass of
+    training; False keeps them, for comparison."""
 
     def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0,
-                 conv_quant: bool = False, group=None):
+                 conv_quant: bool = False, group=None, remat: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
@@ -39,7 +42,7 @@ class RefineTask:
         self.model = MinkUNet(out_channels=3 * self.up_factor,
                               cr=float(cfg.get("model", {}).get("cr", 1.0)),
                               compute_dtype=compute_dtype,
-                              conv_quant=conv_quant)
+                              conv_quant=conv_quant, remat=remat)
         init_weights(self.model, torch.Generator().manual_seed(seed))
         set_bn_group(self.model, group)
         self.model.to(self.device).eval()

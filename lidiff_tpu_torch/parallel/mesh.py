@@ -22,6 +22,8 @@ import tempfile
 import torch
 import torch.distributed as dist
 
+from lidiff_tpu_torch import resolve_device
+
 # odd 64-bit constant (the golden ratio's): rank r's seed is
 # seed + r * _SEED_STRIDE mod 2^63, so rank 0 keeps the one-process seed
 _SEED_STRIDE = 0x9E3779B97F4A7C15
@@ -50,9 +52,10 @@ def file_init_method(directory: str | None = None) -> str:
 def init_ranks(rank: int, world: int, init_method: str,
                device=None):
     """Join the default process group as `rank` of `world`: NCCL when
-    `device` is a card (set as this process's current device), gloo
-    otherwise. Returns the group (`dist.group.WORLD`)."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    `device` is a card (set as this process's current device; None means
+    the card, as for every entry point, and raises without one), gloo for
+    "cpu". Returns the group (`dist.group.WORLD`)."""
+    dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -2,51 +2,46 @@
 """Diffusion training steps at full width on one GPU, timed as
 chip_smoke.py times them, without the rest of chip_smoke.py.
 
-    python3 scripts/torch_train_step.py [--refiner] [--syncs]
+    python3 scripts/torch_train_step.py [--refiner] [--batch] [--syncs]
 
-Builds the kernels, then takes chip_smoke.py's TRAIN_WARMUP + TRAIN_STEPS
-optimizer steps on the 180k-point synthetic scan (bf16 compute, float32
-activations, batch 1): per-step forward, backward and optimizer ms by CUDA
-events, launches per step (checked), peak memory and a profile of one
-step. --refiner runs the refiner's steps instead (C2 checks included).
+Builds the kernels, then runs chip_smoke.py's diffusion training phase on
+the 180k-point synthetic scan (batch 1): one float32 step with remat off
+and one with it held to each other (chip_smoke.compare_remat), then (bf16
+compute, float32 activations) TRAIN_WARMUP + TRAIN_STEPS optimizer steps
+of each: per-step forward, backward and
+optimizer ms by CUDA events, launches per step (checked), peak memory and
+a profile of one remat step. --refiner runs the refiner's phase instead
+(C2 checks included). --batch adds the phase at the config's batch size
+(diffusion 2, refiner 8) with remat.
 --syncs counts, for every step, the calls that make the host wait for the
-card (torch's CUDA sync debug mode warns at each), by the line that made
-them; the steps' times are then not comparable. Prints the card's name
-and power limit first. To compare two trees, run each in its own process,
-alternating, within one call on one machine.
+card (torch's CUDA sync debug mode warns at each), by the port's frame
+nearest each on its stack; the steps' times are then not comparable.
+Prints the card's name and power limit first. To compare two trees, run
+each in its own process, alternating, within one call on one machine.
 """
 
 import argparse
-import collections
 import os
 import subprocess
 import sys
-import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
 def count_syncs() -> None:
-    """Wrap `Trainer.train_step` so that each step prints how many calls
-    made the host wait for the card, and the lines that made most."""
-    import torch
+    """Wrap `Trainer.train_step` so that each step prints its host syncs
+    by the port's frame nearest each (chip_smoke._host_syncs)."""
+    import chip_smoke as cs
     from lidiff_tpu_torch.training.trainer import Trainer
     step = Trainer.train_step
 
     def counted(self, *a, **kw):
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                return step(self, *a, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                where = collections.Counter(
-                    f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-                    for w in seen if "synchroniz" in str(w.message))
-                print(f"host syncs in one step: {sum(where.values())}; "
-                      f"{where.most_common(8)}", flush=True)
+        out, where = cs._host_syncs(lambda: step(self, *a, **kw),
+                                    stacks=True)
+        print(f"host syncs in one step: {sum(where.values())}; "
+              f"{where.most_common(8)}", flush=True)
+        return out
 
     Trainer.train_step = counted
 
@@ -55,6 +50,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--refiner", action="store_true",
                     help="the refiner's training steps")
+    ap.add_argument("--batch", action="store_true",
+                    help="also train at the config's batch size")
     ap.add_argument("--syncs", action="store_true",
                     help="count the host syncs of each step")
     args = ap.parse_args()
@@ -81,8 +78,12 @@ def main() -> int:
         count_syncs()
     if args.refiner:
         cs.run_refine(cfg, kernels, "cuda")
+        if args.batch:
+            cs.run_refine_batch(cfg, kernels, "cuda")
     else:
         cs.run_training(cfg, kernels, x_init, part, "cuda")
+        if args.batch:
+            cs.run_training_batch(cfg, kernels, "cuda")
     return 0
 
 

@@ -13,6 +13,11 @@ thread. Every rank runs, in this order:
     `lidiff_tpu.parallel.mesh.build_train_step` on two host devices with
     the same weights and rows (each replica's loss, coin and mean/std
     regularizer its own, BN synced, gradients averaged);
+  * the same step with `tpu.remat` on (each recomputed stage all-reduces
+    its BN moments again in the backward pass, on every rank in the same
+    order), against the same JAX step: remat changes no value in either
+    package (tests/test_torch_remat.py holds the port's remat against
+    JAX's), so one JAX compile serves both;
   * one step of the `train` CLI's rank function on a KITTI tree with a
     batch of two: rank 0 alone writes the hparams and the checkpoint.
 
@@ -107,10 +112,16 @@ def _train_cli(rank, world, group, device, cli_dir, cfg_path):
 
 def _rank_main(rank, world, group, device, out_dir, inputs):
     torch.set_num_threads(1)
+    cfg, *rest = inputs["step"]
+    remat_cfg = {**cfg, "tpu": {**cfg["tpu"], "remat": True}}
     result = {"moments": _moments(rank, world, group, *inputs["moments"]),
               "step": _train_step(rank, world, group,
                                   os.path.join(out_dir, f"exp{rank}"),
-                                  *inputs["step"])}
+                                  *inputs["step"]),
+              "remat_step": _train_step(
+                  rank, world, group,
+                  os.path.join(out_dir, f"exp_remat{rank}"), remat_cfg,
+                  *rest)}
     _train_cli(rank, world, group, device, *inputs["cli"])
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
 
@@ -289,10 +300,25 @@ def _leaves(tree, prefix=""):
 
 
 def test_train_step_over_ranks(ranks):
+    _check_step_over_ranks(ranks, "step")
+
+
+def test_remat_train_step_over_ranks(ranks):
+    """The step with remat on (synced BN recomputed in the backward pass)
+    against JAX's `build_train_step`."""
+    _check_step_over_ranks(ranks, "remat_step")
+    # the same running statistics as without remat: the recompute leaves
+    # them alone
+    for r in ranks["ranks"]:
+        for n, b in r["step"][2].items():
+            assert torch.equal(r["remat_step"][2][n], b), n
+
+
+def _check_step_over_ranks(ranks, which):
     from lidiff_tpu_torch.convert import state_dict_to_flax
     j_grads, j_stats, j_metrics = ranks["jax"]
     assert [d[2] for d in ranks["draws"]] == [True, False]
-    res = [r["step"] for r in ranks["ranks"]]
+    res = [r[which] for r in ranks["ranks"]]
     ref = dict(_leaves(j_grads))
     top = max(np.abs(r).max() for r in ref.values())
     assert top > 1e-2
@@ -306,8 +332,8 @@ def test_train_step_over_ranks(ranks):
         worst = max((np.abs(got[n] - r).max()
                      / (GRAD_RTOL * np.abs(r).max() + GRAD_ATOL * top), n)
                     for n, r in ref.items())
-        print(f"rank {rank}: worst gradient leaf at {worst[0]:.3f} of its "
-              f"tolerance ({worst[1]}), max|grad| {top:.3g}")
+        print(f"{which}, rank {rank}: worst gradient leaf at {worst[0]:.3f} "
+              f"of its tolerance ({worst[1]}), max|grad| {top:.3g}")
         assert worst[0] <= 1.0, worst
         got_s = dict(_leaves(state_dict_to_flax(stats)["batch_stats"]))
         ref_s = dict(_leaves(j_stats))
@@ -412,3 +438,21 @@ def test_complete_scans_over_two_devices(checkpoints):
     # one-device loop's first
     np.testing.assert_array_equal(pipeline().complete_scans(scans[:1])[0][1],
                                   want[0][1])
+
+
+def test_init_ranks_defaults_to_the_card(tmp_path):
+    """`init_ranks` with no device means the card, as every entry point
+    does, and raises without one; "cpu" still joins a gloo group."""
+    import torch.distributed as dist
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.init_ranks(0, 1, mesh.file_init_method(str(tmp_path)))
+    assert not dist.is_initialized()
+    group = mesh.init_ranks(0, 1, mesh.file_init_method(str(tmp_path)), "cpu")
+    try:
+        assert dist.get_backend(group) == "gloo"
+        assert mesh.world_of(group) == 1 and mesh.rank_of(group) == 0
+    finally:
+        mesh.shutdown()
+    assert not dist.is_initialized()

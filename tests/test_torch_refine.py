@@ -4,7 +4,10 @@ and train mode, `RefineTask.loss_fn` against
 against optax Adam, and the `lidiff_tpu_torch.train_refine` CLI on a
 synthetic KITTI tree.
 
-Both sides run float32 at a quarter of the width (`cr` 0.25; the JAX task
+The JAX model rematerializes its stages in training (`MinkUNet`'s
+default); the port's loss is compared without remat and with it (the
+stages under activation checkpointing). Both sides run float32 at a
+quarter of the width (`cr` 0.25; the JAX task
 always builds the full-width model, so the test hands it a narrow one),
 `up_factor` 2, two items of 384 points against 768-point targets, weights
 carried across by `convert.load_jax_variables`.
@@ -49,7 +52,8 @@ CFG = {
     "data": {"data_dir": "", "resolution": 0.25, "num_points": N},
     "train": {"up_factor": UP, "lr": LR, "n_gpus": 1, "batch_size": B},
     "model": {"out_dim": 96, "cr": CR},
-    "tpu": {"full_capacities": [512, 512, 512, 384, 256], "remat": False},
+    # B x N points: every level holds both items
+    "tpu": {"full_capacities": [B * N] * 3 + [512, 384]},
 }
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-4
 
@@ -57,9 +61,10 @@ GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-4
 @pytest.fixture(scope="module")
 def setup():
     jt = JaxRefineTask(jax_finalize(CFG))
-    jt.model = JaxMinkUNet(out_channels=3 * UP, cr=CR, remat=False)
+    jt.model = JaxMinkUNet(out_channels=3 * UP, cr=CR)
+    assert jt.model.remat
     variables = random_variables(jt, seed=7, n_points=256)
-    tt = RefineTask(finalize_config(CFG), device="cpu")
+    tt = RefineTask(finalize_config(CFG), device="cpu", remat=False)
     rng = np.random.default_rng(3)
     clean = ring_scan(rng, N, batch=B)
     noisy = (clean + np.clip(rng.normal(0, 0.2, clean.shape), -0.3, 0.3)
@@ -108,7 +113,22 @@ def test_minkunet_forward_matches_jax(setup, train):
 
 
 def test_loss_fn_matches_jax_value_and_grad(setup, jax_step):
-    _, variables, tt, noisy, gt = setup
+    _check_step(setup, jax_step, setup[2])
+
+
+def test_remat_loss_fn_matches_jax_value_and_grad(setup, jax_step):
+    """The port with remat against the same JAX step, at batch 2 with the
+    capacities of both items (no voxel overflows)."""
+    tt = RefineTask(finalize_config(CFG), device="cpu", remat=True)
+    assert tt.model.remat
+    assert not tt.pyramid(torch.from_numpy(setup[3])).overflows().any()
+    _check_step(setup, jax_step, tt)
+
+
+def _check_step(setup, jax_step, tt):
+    """One loss and backward pass of the port task `tt` on the JAX side's
+    weights and batch, held against the JAX step."""
+    _, variables, _, noisy, gt = setup
     j_loss, j_stats, j_metrics, j_grads = jax_step
     load_jax_variables(tt.model, variables)
     tt.model.zero_grad()

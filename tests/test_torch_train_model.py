@@ -5,7 +5,10 @@ scan, and the JAX side's own noise, timesteps and coin fed to the port.
 
 Compared, for both values of the classifier-free coin: the loss, every
 metric, every parameter's gradient and the updated BatchNorm running
-statistics, leaf by leaf through `convert.state_dict_to_flax`.
+statistics, leaf by leaf through `convert.state_dict_to_flax`. The JAX side
+runs with its default `tpu.remat` (its stages rematerialized under
+`nn.remat`); the port runs without remat, and again with it (`tpu.remat`,
+the stages under activation checkpointing) with the coin kept.
 
 Tolerances (float32 on both sides; the sums of about 100 layers forward and
 backward run in other orders, and train-mode BatchNorm over the few dozen
@@ -55,7 +58,8 @@ def _leaves(tree, prefix=""):
 
 @pytest.fixture(scope="module")
 def setup():
-    jt = JaxTask(jax_finalize(TRAIN_CFG))
+    jt = JaxTask(jax_finalize(CFG))
+    assert jt.model.remat
     variables = random_variables(jt, seed=5)
     tt = DiffusionTask(finalize_config(TRAIN_CFG), device="cpu")
     rng = np.random.default_rng(8)
@@ -79,7 +83,22 @@ def setup():
 
 @pytest.mark.parametrize("drop", [False, True])
 def test_loss_fn_matches_jax_value_and_grad(setup, drop):
-    jt, variables, tt, part, full, value_and_grad = setup
+    _check_step(setup, setup[2], drop)
+
+
+def test_remat_loss_fn_matches_jax_value_and_grad(setup):
+    """The port with remat against the same JAX step, at batch 2 with the
+    capacities of both items (no voxel overflows) and the coin kept."""
+    tt = DiffusionTask(finalize_config(CFG), device="cpu")
+    assert tt.model.partial_enc.remat and tt.model.denoiser.remat
+    metrics = _check_step(setup, tt, False)
+    assert metrics["overflow_vox"] == 0
+
+
+def _check_step(setup, tt, drop):
+    """One loss and backward pass of the port task `tt` on the JAX side's
+    weights and draws, held against the JAX step; returns its metrics."""
+    jt, variables, _, part, full, value_and_grad = setup
     key = jax.random.PRNGKey(KEYS[drop])
     jv = to_jax(variables)
     batch = {"pcd_full": jnp.asarray(full), "pcd_part": jnp.asarray(part)}
@@ -137,6 +156,7 @@ def test_loss_fn_matches_jax_value_and_grad(setup, drop):
         np.testing.assert_allclose(got_s[name], r, rtol=1e-4, atol=1e-4,
                                    err_msg=name)
     assert any(not np.allclose(old[n], got_s[n]) for n in old)
+    return metrics
 
 
 def test_sampling_after_training_keeps_running_statistics(setup):
