@@ -80,6 +80,13 @@ the kernels are built for sm_90a):
  15. completes two scans through `complete_scans(devices=["cuda:0",
      "cuda:0"])`, two replicas of the bf16 pipeline on the one card, each
      held against `complete_scan` with that replica's generator.
+ 16. holds the gather-form kernel-map API on the sampling pyramid:
+     `build_kernel_map` against B1's map at every level,
+     `down_kmap_from_pooling` against `build_kernel_map`, the 27-tap gather
+     conv (per tap, fused, G=1 and G=2) against A1 through `sparse_conv` in
+     float32 and bf16, the 8-tap gather down conv against
+     `sparse_conv_down`, and times the bf16 gather beside A1 (phase 2 runs
+     it, after the backward kernels).
 It prints one line per phase, then a {"kernels": [...]} JSON line, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
@@ -125,6 +132,12 @@ A1_F32_TOL = 1e-5           # x max|ref|
 A3_F32_TOL = 1e-4
 A3_BF16_TOL = 5e-4
 A3_TIMED = (384, 256, 3, 1)  # (C, Co, level, G): the kernels line's A2, A3
+# the gather form (`sparse_conv` over a KernelMap): float32 checks against
+# A1 at these (Cin, Cout, level), within A1_F32_TOL of max|ref|; the first
+# is timed in bf16 at G=1 beside A1
+GATHER_WIDTHS = [(384, 256, 3), (96, 96, 0)]
+GATHER_DOWN = (32, 32)      # the first down conv (DownStage_0, cs[0] -> cs[0])
+BF16_U = 2.0 ** -8          # bf16 unit roundoff
 # small float32 training step, card against CPU: sums in other orders over
 # about 100 layers forward and backward, and BatchNorm over a few hundred
 # voxels on the coarse levels divides by small variances
@@ -733,6 +746,131 @@ def check_backward(pyr, sc, dev):
     return res
 
 
+def check_gather_form(pyr, dev):
+    """The gather-form kernel-map API on the sampling pyramid, with the
+    launch counts of its run: (a) `build_kernel_map` at every level against
+    B1's map, built here (hit equal, idx equal on the hit taps); (b)
+    `down_kmap_from_pooling` L0 -> L1 against `build_kernel_map` exactly;
+    (c) the 27-tap gather conv, per tap at G=1 and G=2 and fused at G=1,
+    against A1 through `sparse_conv` over the ColumnKernelMap, float32 with
+    bias and ReLU within A1_F32_TOL of max|ref|, and bf16 within the bound
+    of the per-tap bf16 sums (2 (K + 2) u A, A = the conv of |feats| and
+    |W| plus |bias|: each tap's product and each partial sum rounds to
+    bf16, A1 rounds once); (d) the 8-tap gather down conv over (b)'s map
+    against `sparse_conv_down`, float32; (e) the bf16 gather at G=1 per tap
+    and fused beside A1, timed, with the fused form's peak memory."""
+    import torch
+    from lidiff_tpu_torch.ops import grid, sparse_conv as sc
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.time()
+    kmaps = []
+    for li, lvl in enumerate(pyr.levels):
+        g = lvl.geom
+        col = grid.build_kmap3_columns(g)
+        km = grid.build_kernel_map(g, g, grid.cube_offsets(3, g.stride))
+        if not (torch.equal(km.hit, col.hit)
+                and torch.equal(km.idx[km.hit], col.idx[col.hit])):
+            raise AssertionError(f"gather form: build_kernel_map differs "
+                                 f"from B1's map at L{li}")
+        kmaps.append(km)
+    fine, coarse = pyr.levels[0], pyr.levels[1]
+    down = grid.down_kmap_from_pooling(fine.geom, fine.parent_idx,
+                                       coarse.geom.capacity)
+    ref_down = grid.build_kernel_map(fine.geom, coarse.geom,
+                                     grid.cube_offsets(2, 1))
+    if not (torch.equal(down.hit, ref_down.hit)
+            and torch.equal(down.idx[down.hit], ref_down.idx[ref_down.hit])):
+        raise AssertionError("gather form: down_kmap_from_pooling differs "
+                             "from build_kernel_map at L0 -> L1")
+    log(f"gather form: build_kernel_map = B1's map at L0-L4, "
+        f"down_kmap_from_pooling = build_kernel_map at L0 -> L1 "
+        f"({int(down.hit.sum())} children) ({time.time() - t0:.1f} s)")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    timed = None
+    for cin, cout, li in GATHER_WIDTHS:
+        lvl = pyr.levels[li]
+        g, col, km = lvl.geom, lvl.kmap3, kmaps[li]
+        b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        w32 = torch.randn(27, cin, cout, generator=gen, device=dev) \
+            / math.sqrt(27 * cin)
+        f32 = torch.randn(g.capacity, 2 * cin, generator=gen, device=dev) \
+            * g.mask[:, None]
+        for dt in (torch.float32, torch.bfloat16):
+            for G, fused in ((1, False), (1, True), (2, False)):
+                if dt == torch.bfloat16 and G == 2:
+                    continue
+                f, w = f32[:, :G * cin].to(dt), w32.to(dt)
+                kw = dict(groups=G, bias=b, relu=True, compute_dtype=dt)
+                ref = sc.sparse_conv(f, col, w, g.mask, **kw).float()
+                got = sc.sparse_conv(f, km, w, g.mask, fused=fused,
+                                     **kw).float()
+                err = (got - ref).abs()
+                scale = float(ref.abs().max())
+                if dt == torch.float32:
+                    bound = A1_F32_TOL * scale
+                    ok = scale > 0 and float(err.max()) <= bound
+                    what = f"{bound:.3g}"
+                else:
+                    A = sc.sparse_conv(f.float().abs(), km, w.float().abs(),
+                                       g.mask, groups=G, bias=b.abs())
+                    ok = bool((err <= 2 * 29 * BF16_U * A).all())
+                    what = (f"2 (K+2) u A, largest err/A "
+                            f"{float((err / A.clamp(min=1e-30)).max()):.3g}")
+                form = "fused" if fused else "per tap"
+                log(f"gather form ({cin:3d},{cout:3d}) L{li} G={G} {form:7s}"
+                    f" {str(dt)[6:]:8s}: max err {float(err.max()):.3g} "
+                    f"({float(err.max()) / max(scale, 1e-30):.2e} of "
+                    f"max|ref|), bound {what}")
+                if not ok:
+                    raise AssertionError(
+                        f"gather form ({cin},{cout}) L{li} G={G} {form} "
+                        f"{dt}: max err {float(err.max()):.3g} at scale "
+                        f"{scale:.3g}")
+        if (cin, cout, li) == GATHER_WIDTHS[0]:
+            timed = (g, col, km, f32[:, :cin].bfloat16(), w32.bfloat16(), b)
+
+    cin, cout = GATHER_DOWN
+    f = torch.randn(fine.geom.capacity, cin, generator=gen, device=dev) \
+        * fine.geom.mask[:, None]
+    w = torch.randn(8, cin, cout, generator=gen, device=dev) \
+        / math.sqrt(8 * cin)
+    b = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    ref = sc.sparse_conv_down(f, fine.parent_idx, fine.up_tap, w,
+                              coarse.geom.mask, bias=b, relu=True)
+    got = sc.sparse_conv(f, down, w, coarse.geom.mask, bias=b, relu=True)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    log(f"gather form down conv ({cin},{cout}) L0 -> L1 float32: max err "
+        f"{err:.3g} ({err / max(scale, 1e-30):.2e} of max|ref|)")
+    if not (scale > 0 and err <= A1_F32_TOL * scale):
+        raise AssertionError(f"gather down conv: max err {err:.3g} at scale "
+                             f"{scale:.3g}")
+
+    g, col, km, f, w, b = timed
+    cin, cout, li = GATHER_WIDTHS[0]
+    kw = dict(bias=b, relu=True, compute_dtype=torch.bfloat16)
+    a1_ms = _time_ms(lambda: sc.sparse_conv(f, col, w, g.mask, **kw))
+    tap_ms = _time_ms(lambda: sc.sparse_conv(f, km, w, g.mask, **kw), 5)
+    _sync(dev)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_ms = _time_ms(lambda: sc.sparse_conv(f, km, w, g.mask, fused=True,
+                                               **kw), 5)
+    peak = torch.cuda.max_memory_allocated() - base
+    V = g.capacity
+    gemm = 2.0 * V * 27 * cin * cout      # every tap, hit or not
+    log(f"gather form time ({cin},{cout}) L{li} V={V} G=1 bf16: per tap "
+        f"{tap_ms:.4f} ms, fused {fused_ms:.4f} ms ({gemm / fused_ms / 1e9:.1f}"
+        f" TFLOP/s over all 27 taps; peak memory {peak / 2**30:.2f} GiB above "
+        f"the inputs); A1 {a1_ms:.4f} ms, {tap_ms / a1_ms:.2f}x and "
+        f"{fused_ms / a1_ms:.2f}x its time ({time.time() - t0:.1f} s)")
+    launches = {n: k.launches for n, k in kernels.items()}
+    log(f"gather form launches {launches}")
+    return launches
+
+
 def check_small_train(cfg_mod, diffusion, dev):
     """A small f32 training step on the card (kernels) against the same
     weights, noise, timesteps and coin on the CPU (plain versions): the
@@ -866,7 +1004,8 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
 
 def run(steps: int, dev: str = "cuda"):
     """Phases 2-12 on `dev`; returns (kernel results, {path: launches} for
-    the sampling, int8 sampling, training, refiner training and pipeline
+    the sampling, int8 sampling, gather form, training, refiner training
+    and pipeline
     paths)."""
     import torch
     from lidiff_tpu_torch import config as cfg_mod
@@ -926,6 +1065,7 @@ def run(steps: int, dev: str = "cuda"):
         check_c2_case(knn, f"sampling, L0 queries x {name} bank", g0.coords,
                       g0.mask, bank.coords, bank.mask, 1)
     res.update(check_backward(pyr, sparse_conv, dev))
+    gather_launches = check_gather_form(pyr, dev)
     res["F1"] = check_f1(dev)
     log(f"kernel checks: {time.time() - t0:.1f} s")
     check_small_reference(cfg_mod, diffusion, dev)
@@ -1005,6 +1145,7 @@ def run(steps: int, dev: str = "cuda"):
         run_refine_cli(dev, tree)
         run_eval_clis(dev, tree, kernels)
     return res, {"sampling": launches, "int8 sampling": int8_launches,
+                 "gather form": gather_launches,
                  "training": train_launches,
                  f"training at batch {DIFF_BATCH}": batch_launches,
                  "refiner training": refine_launches,
@@ -2535,6 +2676,7 @@ def main(argv=None) -> int:
     for path, names in (
             ("sampling", ("A1", "B1", "B1 taps", "C1")),
             ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1")),
+            ("gather form", ("A1", "B1")),
             ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1")),
             (f"training at batch {DIFF_BATCH}",
              ("A1", "A2", "A3", "B1", "B1 taps", "C1")),

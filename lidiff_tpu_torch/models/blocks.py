@@ -28,10 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from lidiff_tpu_torch.ops.grid import ColumnKernelMap, DownMap, LevelGeom
-from lidiff_tpu_torch.ops.sparse_conv import (masked_moments,
-                                              sparse_conv_columns,
-                                              sparse_conv_down,
+from lidiff_tpu_torch.ops.grid import DownMap, LevelGeom
+from lidiff_tpu_torch.ops.sparse_conv import (masked_moments, sparse_conv,
                                               sparse_conv_transpose)
 
 
@@ -43,8 +41,9 @@ def he_uniform_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 class SparseConv(nn.Module):
-    """27-tap conv over a column kernel map, or the ks=2/stride-2 down conv
-    over a DownMap; kernel [taps, Cin, Cout]."""
+    """Sparse conv over any kernel map (`sparse_conv`): the 27-tap column
+    conv, the ks=2/stride-2 down conv over a DownMap, or the gather form
+    over a KernelMap; kernel [taps, Cin, Cout]."""
 
     def __init__(self, cin: int, cout: int, taps: int = 27,
                  compute_dtype=torch.float32, conv_quant: bool = False):
@@ -56,17 +55,10 @@ class SparseConv(nn.Module):
     def forward(self, feats, kmap, out_mask, groups: int, w_scale=None,
                 bias=None, relu: bool = False):
         w = self.kernel if w_scale is None else self.kernel * w_scale
-        if isinstance(kmap, ColumnKernelMap):
-            return sparse_conv_columns(feats, kmap, w, out_mask,
-                                       groups=groups, bias=bias, relu=relu,
-                                       compute_dtype=self.compute_dtype,
-                                       quant=self.conv_quant)
-        if isinstance(kmap, DownMap):
-            return sparse_conv_down(feats, kmap.parent_idx, kmap.tap, w,
-                                    out_mask, groups=groups, bias=bias,
-                                    relu=relu,
-                                    compute_dtype=self.compute_dtype)
-        raise TypeError(f"unsupported kernel map {type(kmap).__name__}")
+        return sparse_conv(feats, kmap, w, out_mask, groups=groups,
+                           bias=bias, relu=relu,
+                           compute_dtype=self.compute_dtype,
+                           quant=self.conv_quant)
 
 
 class SparseConvTranspose(nn.Module):

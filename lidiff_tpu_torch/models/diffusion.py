@@ -1,5 +1,5 @@
 """The LiDiff diffusion task (counterpart of
-lidiff_tpu/models/diffusion.py:35-266).
+lidiff_tpu/models/diffusion.py:35-354).
 
 Training: `loss_fn` noises the offsets around the anchor points at a random
 timestep per item, drops the conditioning for the whole batch with
@@ -10,6 +10,7 @@ Classifier-free completion sampling: the partial-scan encoder runs once per
 completion for the conditioned bank and for the unconditioned (zeros) bank,
 then every solver step re-voxelizes the moving cloud and runs the cond and
 uncond denoiser streams fused as G=2 groups over one shared pyramid.
+`sample` runs the solver loop of `make_chunked_sampler` in one chunk.
 """
 
 from __future__ import annotations
@@ -225,7 +226,78 @@ class DiffusionTask:
         eps_c, eps_u = eps[..., 0, :], eps[..., 1, :]
         return eps_u + w * (eps_c - eps_u)
 
+    def make_chunked_sampler(self, w_uncond: float | None = None,
+                             solver: DPMSolver | None = None,
+                             chunk: int = 10):
+        """The sampling loop in chunks of `chunk` solver steps
+        (counterpart of lidiff_tpu/models/diffusion.py:268-332). Returns
+        (prepare, run_chunk, finish, num_steps):
+
+            ctx = prepare(x_init, part, generator, offset0=None, noise=None)
+            for i0 in range(0, num_steps, chunk):
+                ctx = run_chunk(ctx, i0)
+            points = finish(ctx)
+
+        `prepare` encodes the conditioning banks and draws the initial
+        offset; `run_chunk` runs steps i0 .. i0 + chunk - 1. A step past
+        the last one still draws its noise and leaves the state as it was
+        (the JAX package's `live` mask), so the generator's draws line up
+        whatever the chunk. The arguments of `prepare` are those of
+        `sample`."""
+        if chunk < 1:
+            raise ValueError(f"chunk must be at least 1, not {chunk}")
+        solver = solver or self.solver
+        w = self.w_uncond if w_uncond is None else w_uncond
+        num_steps = solver.num_steps
+
+        def randn(ctx):
+            if ctx["generator"] is None:
+                raise ValueError("pass a torch.Generator, or offset0 and "
+                                 "noise")
+            x = ctx["x_init"]
+            return torch.randn(x.shape, generator=ctx["generator"],
+                               device=x.device, dtype=x.dtype)
+
+        def prepare(x_init, part, generator, *, offset0=None, noise=None):
+            ctx = dict(x_init=x_init, generator=generator, noise=noise,
+                       banks=self.encode_banks(part))
+            ctx["state"] = init_state(randn(ctx) if offset0 is None
+                                      else offset0)
+            return ctx
+
+        def run_chunk(ctx, i0: int):
+            state, noise = ctx["state"], ctx["noise"]
+            for i in range(i0, i0 + chunk):
+                if i >= num_steps:
+                    if noise is None:
+                        randn(ctx)
+                    continue
+                t = int(solver.timesteps[i])
+                eps = self.denoise_pair(ctx["x_init"] + state.sample,
+                                        *ctx["banks"], t, w)
+                z = randn(ctx) if noise is None else noise[i]
+                state = solver_step(solver, state, eps, z)
+            return {**ctx, "state": state}
+
+        def finish(ctx):
+            return ctx["x_init"] + ctx["state"].sample
+
+        return prepare, run_chunk, finish, num_steps
+
     @eval_no_grad
+    def sample_chunked(self, x_init, part, generator: torch.Generator | None,
+                       *, offset0=None, noise=None,
+                       w_uncond: float | None = None,
+                       solver: DPMSolver | None = None, chunk: int = 10):
+        """`sample` through `make_chunked_sampler`: the same result bit for
+        bit, whatever the chunk."""
+        prepare, run_chunk, finish, num_steps = self.make_chunked_sampler(
+            w_uncond, solver, chunk)
+        ctx = prepare(x_init, part, generator, offset0=offset0, noise=noise)
+        for i0 in range(0, num_steps, chunk):
+            ctx = run_chunk(ctx, i0)
+        return finish(ctx)
+
     def sample(self, x_init, part, generator: torch.Generator | None, *,
                offset0=None, noise=None, w_uncond: float | None = None,
                solver: DPMSolver | None = None):
@@ -236,21 +308,7 @@ class DiffusionTask:
         (on the device); `offset0` ([B, N, 3]) and `noise` ([S, B, N, 3])
         replace them, so tests can feed the same noise to both packages.
         Returns [B, N, 3] completed points."""
-        solver = solver or self.solver
-        w = self.w_uncond if w_uncond is None else w_uncond
-        banks = self.encode_banks(part)
-
-        def randn():
-            if generator is None:
-                raise ValueError("pass a torch.Generator, or offset0 and "
-                                 "noise")
-            return torch.randn(x_init.shape, generator=generator,
-                               device=x_init.device, dtype=x_init.dtype)
-
-        state = init_state(randn() if offset0 is None else offset0)
-        for i in range(solver.num_steps):
-            t = int(solver.timesteps[i])
-            eps = self.denoise_pair(x_init + state.sample, *banks, t, w)
-            z = randn() if noise is None else noise[i]
-            state = solver_step(solver, state, eps, z)
-        return x_init + state.sample
+        return self.sample_chunked(
+            x_init, part, generator, offset0=offset0, noise=noise,
+            w_uncond=w_uncond, solver=solver,
+            chunk=(solver or self.solver).num_steps)

@@ -13,11 +13,18 @@ Each map carries the tile plan of the column conv's bf16 kernel
 B1's `kmap3_tile_taps` on the card), and a level used as a conditioning
 bank its 1-NN index (`VoxelGeom.nn_index`), each built on first use and
 kept.
+
+The gather-form map (`KernelMap`: for each output voxel and tap, the input
+row and a hit flag) is built by binary search (`build_kernel_map`) or, for
+the down conv, by a scatter of the pooling's children
+(`down_kmap_from_pooling`). No conv of the models runs over it: it is the
+brute-force reference the tests hold the column and child-form maps to.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -127,6 +134,14 @@ def tile_plan(hit: torch.Tensor, mask: torch.Tensor | None = None):
 
 
 @dataclass
+class KernelMap:
+    """Gather-form kernel map: for each output voxel and tap, the input row
+    (clamped into the input) and whether the tap hits."""
+    idx: torch.Tensor  # [V_out, K] int32
+    hit: torch.Tensor  # [V_out, K] bool
+
+
+@dataclass
 class ColumnKernelMap:
     """27-tap kernel map in column form. For each voxel and (dx, dy) column,
     `col_idx` is the lower bound of (b, x+dx*s, y+dy*s, z-s) in the level's
@@ -146,6 +161,16 @@ class ColumnKernelMap:
             self._plan = plan_from_keys(self.plan_key)
         return self._plan
 
+    @property
+    def idx(self) -> torch.Tensor:
+        """The dense [V, 27] int32 view: tap col*3 + r reads row p, p+m0 or
+        p+m0+m1 of its column. A tap that misses may point one past the
+        last row; a gather clamps it."""
+        hit = self.hit.to(torch.int32)
+        p, m0, m1 = self.col_idx, hit[:, 0::3], hit[:, 1::3]
+        return torch.stack([p, p + m0, p + m0 + m1], dim=2).reshape(
+            p.shape[0], 27)
+
 
 @dataclass
 class DownMap:
@@ -159,6 +184,9 @@ class DownMap:
 class LevelGeom:
     geom: VoxelGeom
     kmap3: ColumnKernelMap
+    # the gather-form down-conv map (`down_kmap_from_pooling`);
+    # `build_pyramid` leaves it None: the down conv runs over the DownMap
+    down_kmap: KernelMap | None = None
     parent_idx: torch.Tensor | None = None  # [V] fine -> coarse
     up_tap: torch.Tensor | None = None      # [V] tap for the transpose conv
 
@@ -271,6 +299,55 @@ def up_maps(fine: VoxelGeom, child2parent: torch.Tensor):
         torch.div(fine.coords[:, 1:], fine.stride, rounding_mode="floor"), 2)
     tap = bits[:, 0] * 4 + bits[:, 1] * 2 + bits[:, 2]
     return child2parent, tap.to(torch.int32)
+
+
+def cube_offsets(kernel_size: int, stride_units: int) -> torch.Tensor:
+    """The taps' offsets [ks^3, 3] int32: {-s, 0, s}^3 for ks = 3 (odd
+    sizes are centred), {0, s}^3 for ks = 2 (even sizes span [0, ks)); x
+    slowest, z fastest."""
+    if kernel_size % 2 == 1:
+        r = range(-(kernel_size // 2), kernel_size // 2 + 1)
+    else:
+        r = range(kernel_size)
+    return torch.tensor(list(itertools.product(r, r, r)),
+                        dtype=torch.int32) * stride_units
+
+
+def build_kernel_map(geom_in: VoxelGeom, geom_out: VoxelGeom,
+                     offsets: torch.Tensor) -> KernelMap:
+    """For each output voxel and tap, the input voxel at its coordinates
+    plus offsets[k], by binary search in the input's sorted keys. A masked
+    output row, or a query that leaves the packable range (it packs to
+    PAD_KEY, the padding rows' key), finds nothing."""
+    V = geom_out.capacity
+    off = offsets.to(device=geom_out.coords.device, dtype=torch.int32)
+    q, q_valid = K.pack(geom_out.coords[:, None, 0].expand(V, off.shape[0]),
+                        geom_out.coords[:, None, 1:] + off[None])
+    q = torch.where(geom_out.mask[:, None], q, K.PAD_KEY)
+    idx, found = K.searchsorted_pair(geom_in.key, q)
+    return KernelMap(idx=idx.to(torch.int32),
+                     hit=found & geom_out.mask[:, None] & q_valid)
+
+
+def down_kmap_from_pooling(fine: VoxelGeom, child2parent: torch.Tensor,
+                           out_capacity: int) -> KernelMap:
+    """The ks=2/stride-2 down conv's gather map from the pooling, with no
+    search: each valid child fills its one (parent, tap) slot. Children
+    that are masked or whose parent was dropped go to a sentinel row
+    `out_capacity`, cut off afterwards. Tap order as cube_offsets(2, s)."""
+    _, tap = up_maps(fine, child2parent)
+    ok = fine.mask & (child2parent < out_capacity)
+    parent = torch.where(ok, child2parent, out_capacity).long()
+    tap = tap.long()
+    child = torch.arange(fine.capacity, dtype=torch.int32,
+                         device=child2parent.device)
+    idx = torch.zeros(out_capacity + 1, 8, dtype=torch.int32,
+                      device=child2parent.device)
+    idx[parent, tap] = torch.where(ok, child, 0)
+    hit = torch.zeros(out_capacity + 1, 8, dtype=torch.bool,
+                      device=child2parent.device)
+    hit[parent, tap] = ok
+    return KernelMap(idx=idx[:out_capacity], hit=hit[:out_capacity])
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,12 @@ of a 64-row tile hits are computed, which changes no result. The down
 and transpose convs are one dense GEMM each plus a gather or scatter, in
 plain PyTorch, and differentiate through autograd.
 
+`sparse_conv` takes any of the three kernel maps: a ColumnKernelMap goes
+to the column conv, a DownMap to the down conv, and a gather-form
+KernelMap to the gather body, one row gather and one GEMM per tap (or one
+GEMM over all taps with `fused`), as the JAX package computes it outside
+any Pallas kernel (lidiff_tpu/ops/sparse_conv.py:235-302).
+
 Training differentiates the column conv through `Conv3ColumnsFunction`
 (kernel A2, counterpart of conv_columns_pallas_ad,
 lidiff_tpu/ops/pallas_conv.py:667-719): the feats gradient is kernel A1 on
@@ -42,8 +48,8 @@ from dataclasses import dataclass, field
 import torch
 
 from lidiff_tpu_torch.ops import native
-from lidiff_tpu_torch.ops.grid import (TILE_ROWS, ColumnKernelMap,
-                                       TilePlan, tile_plan)
+from lidiff_tpu_torch.ops.grid import (TILE_ROWS, ColumnKernelMap, DownMap,
+                                       KernelMap, TilePlan, tile_plan)
 
 # Kernel A1 takes these (input, output) dtype pairs; the codes match
 # csrc/conv3_columns.cu.
@@ -602,6 +608,70 @@ def sparse_conv_columns(feats, kmap: ColumnKernelMap, weights, out_mask, *,
                plan=plan)
 
 
+def sparse_conv(feats, kmap, weights, out_mask, *, fused: bool = False,
+                groups: int = 1, bias=None, relu: bool = False,
+                compute_dtype=torch.float32, quant: bool = False):
+    """Sparse conv over any kernel map: a ColumnKernelMap runs
+    `sparse_conv_columns` (kernel A1, or A4 under `quant`), a DownMap
+    `sparse_conv_down`, a KernelMap the gather body. `fused` only
+    concerns the gather form."""
+    if isinstance(kmap, ColumnKernelMap):
+        return sparse_conv_columns(feats, kmap, weights, out_mask,
+                                   groups=groups, bias=bias, relu=relu,
+                                   compute_dtype=compute_dtype, quant=quant)
+    if isinstance(kmap, DownMap):
+        return sparse_conv_down(feats, kmap.parent_idx, kmap.tap, weights,
+                                out_mask, groups=groups, bias=bias,
+                                relu=relu, compute_dtype=compute_dtype)
+    if isinstance(kmap, KernelMap):
+        return _sparse_conv_gather(feats, kmap, weights, out_mask,
+                                  fused=fused, groups=groups, bias=bias,
+                                  relu=relu, compute_dtype=compute_dtype)
+    raise TypeError(f"unsupported kernel map {type(kmap).__name__}")
+
+
+def _sparse_conv_gather(feats, kmap: KernelMap, weights, out_mask, *,
+                       fused: bool = False, groups: int = 1, bias=None,
+                       relu: bool = False, compute_dtype=torch.float32):
+    """The conv over a gather-form map [V_out, K]: per tap, the input rows
+    (zero where the tap misses) times W[k], summed in tap order in feats'
+    dtype; in bf16 compute with bf16 feats each tap's product and each
+    partial sum round to bf16, as JAX's preferred_element_type does.
+    `fused` (G == 1 only) gathers all taps into one [V_out, K*Cin] matrix
+    and runs one GEMM. Then bias (tiled G times), ReLU and the mask. Plain
+    PyTorch, differentiated by autograd."""
+    Kt, Cin, Cout = weights.shape
+    G = groups
+    if feats.shape[-1] != G * Cin:
+        raise ValueError(f"sparse_conv: feats width {feats.shape[-1]} is "
+                         f"not {G} x {Cin}")
+    out_dtype = feats.dtype
+    # values rounded to the compute dtype, multiplied in the wider of it
+    # and feats' dtype, each GEMM's result rounded to feats' dtype
+    mm_dtype = torch.promote_types(compute_dtype, out_dtype)
+    cf = feats.to(compute_dtype).to(mm_dtype)
+    cw = weights.to(compute_dtype).to(mm_dtype)
+    idx = kmap.idx.long().clamp(0, cf.shape[0] - 1)
+    if fused and G == 1:
+        g = torch.where(kmap.hit[..., None], cf[idx], 0.0)   # [V, K, Cin]
+        out = torch.matmul(g.reshape(-1, Kt * Cin),
+                           cw.reshape(Kt * Cin, Cout)).to(out_dtype)
+    else:
+        outs = [None] * G
+        for k in range(Kt):
+            g = torch.where(kmap.hit[:, k, None], cf[idx[:, k]], 0.0)
+            for gi in range(G):
+                y = torch.matmul(g[:, gi * Cin:(gi + 1) * Cin],
+                                 cw[k]).to(out_dtype)
+                outs[gi] = y if outs[gi] is None else outs[gi] + y
+        out = outs[0] if G == 1 else torch.cat(outs, dim=1)
+    if bias is not None:
+        out = out + bias.to(out.dtype).repeat(G)
+    if relu:
+        out = out.clamp(min=0)
+    return torch.where(out_mask[:, None], out, 0.0)
+
+
 def sparse_conv_down(feats, parent_idx, tap, weights, out_mask, *,
                      groups: int = 1, bias=None, relu: bool = False,
                      compute_dtype=torch.float32):
@@ -639,7 +709,7 @@ def sparse_conv_down(feats, parent_idx, tap, weights, out_mask, *,
         out = out + bias.float().repeat(G)
     if relu:
         out = out.clamp(min=0)
-    return (out * out_mask[:, None]).to(out_dtype)
+    return torch.where(out_mask[:, None], out, 0.0).to(out_dtype)
 
 
 def sparse_conv_transpose(coarse_feats, parent_idx, tap, weights, fine_mask,
@@ -659,7 +729,8 @@ def sparse_conv_transpose(coarse_feats, parent_idx, tap, weights, fine_mask,
     pidx = parent_idx.long().clamp(max=Vc - 1)
     o = y[pidx, :, tap.long()]                        # [V_f, G, Cout]
     ok = (parent_idx < Vc) & fine_mask
-    return (o * ok[:, None, None]).reshape(-1, G * Cout)
+    o = torch.where(ok[:, None, None], o, 0.0).reshape(-1, G * Cout)
+    return torch.where(fine_mask[:, None], o, 0.0)
 
 
 def masked_moments(feats, mask, group=None):
@@ -685,3 +756,9 @@ def masked_moments(feats, mask, group=None):
     mean = s1 / cnt
     var = (s2 / cnt - mean * mean).clamp(min=0.0)
     return mean, var, cnt
+
+
+def global_pool(feats, mask):
+    """Masked mean over the voxels: [V, C] -> [C]."""
+    m = mask.to(feats.dtype)[:, None]
+    return (feats * m).sum(0) / m.sum().clamp(min=1.0)
