@@ -17,7 +17,13 @@ the kernels are built for sm_90a):
      full width (cr=1, out_dim 96, bf16) on a 180k-point synthetic ring
      scan, G=2 fused cond/uncond, w=6, S steps of the 1000-step linear
      schedule, counting each kernel's launches in that run (C1: 10 per
-     step, 5 of them the uncond bank's scan, and 2 index builds);
+     step, 5 of them the uncond bank's scan, and 2 index builds); then the
+     same completion with `tpu.fuse_classfree: false` (the same weights,
+     offset and noise; the guided pair as two G=1 forwards over one
+     pyramid), its ms per step beside the fused one's, its launches (A1
+     twice per denoiser conv; B1 and C1 unchanged), the mean
+     nearest-neighbour distance between the two clouds, a profiled step,
+     and the float32 unfused guided eps against the fused one at one t;
   4. checks the output (finite, shape, zero capacity overflow) and a small
      f32 denoise on the card against the same weights on the CPU;
   5. holds the conv's backward kernels against their plain versions at the
@@ -58,15 +64,17 @@ the kernels are built for sm_90a):
      the card against the CPU;
  11. runs the completion pipeline at full width through
      `DiffCompletion.complete_scan` on random-init checkpoints saved as a
-     user's are, bf16 and int8 (on the bf16 run's crop and FPS), 4 solver
+     user's are, bf16 and int8 (on the bf16 run's crop and FPS; both ask
+     for bf16 by `compute_dtype`, which both tasks must get), 4 solver
      steps and the refiner (180k -> 1.08M points), with the time of each
-     stage, then the metrics of
-     `eval_path` against a synthetic ground truth;
+     stage, then the metrics of `eval_path` against a synthetic ground
+     truth;
  12. runs the CLIs on one small synthetic KITTI tree: `train` (two steps,
      a resume to step 3, `--test`), `train_refine` (sanity validation, two
      steps, a resume to step 3, `--test`), `map_from_scans`, the pipeline
-     on both trained checkpoints with LIDIFF_CONV_QUANT=int8, and
-     `eval_path` on its .ply files and live.
+     on both trained checkpoints with LIDIFF_CONV_QUANT=int8,
+     `eval_path` on its .ply files and live, and the pipeline once more
+     with LIDIFF_COMPUTE_DTYPE=bfloat16 (both tasks must compute in bf16).
  13. holds kernel F1 (farthest-point sampling, `ops/fps.py` `fps_cuda`)
      against `fps_plain` index for index at 18k picks of a 120k-point ring
      scan, k >= N, duplicated points (ties), N = 100,003 and a few points,
@@ -79,7 +87,11 @@ the kernels are built for sm_90a):
      each timed with its host syncs and collectives;
  15. completes two scans through `complete_scans(devices=["cuda:0",
      "cuda:0"])`, two replicas of the bf16 pipeline on the one card, each
-     held against `complete_scan` with that replica's generator.
+     held against `complete_scan` with that replica's generator; then the
+     pipeline CLI's multi-card branch on the same two scans as .bin files,
+     with `_devices` giving ["cuda", "cuda"] and
+     LIDIFF_COMPUTE_DTYPE=bfloat16 (an "s/scan" line and .ply files with
+     refined = diff x 6 for each scan, every task in bf16).
  16. holds the gather-form kernel-map API on the sampling pyramid:
      `build_kernel_map` against B1's map at every level,
      `down_kmap_from_pooling` against `build_kernel_map`, the 27-tap gather
@@ -148,7 +160,8 @@ TRAIN_WARMUP = 2            # untimed optimizer steps first: the first
                             # step after them still ran up to 2.5x slower in
                             # its forward phase with one warm-up step
 TRAIN_STEPS = 3             # timed optimizer steps
-CONVS_PER_STEP = 52         # column convs: 34 in the denoiser, 18 encoder
+DENOISER_CONVS = 34         # column convs of one denoiser forward
+CONVS_PER_STEP = DENOISER_CONVS + 18    # and the encoder's 18
 REMAT_STATS_TOL = 1e-4      # BN running statistics, remat on vs off on the
                             # card, x (1 + |value|)
 DIFF_BATCH = 2              # the configs' batch sizes (config.json,
@@ -163,6 +176,13 @@ C2_SUBSET_TILES = 512       # whole query tiles (16,384 queries) held
 PLAIN_PAIRS = 1 << 28       # (query, ref) pairs per block of nn_match_plain
 CHAMFER_GRID_RTOL = 1e-3    # grid against exact loss, as tests/test_chamfer.py
 CHAMFER_CPU_RTOL = 1e-5     # card against CPU: float32 sums in other orders
+UNFUSED_EPS_TOL = 1e-4      # the unfused guided eps against the fused one,
+                            # float32 on the card, x max|eps|: the same
+                            # products, summed in another order where the
+                            # card adds by atomics (the voxel features, the
+                            # down convs' scatter) or cuBLAS picks another
+                            # GEMM for the G=2 shapes; ulp-level noise
+                            # through about 40 layers, scaled by 2w + 1 = 13
 SCANS_NN_TOL = 1e-2         # complete_scans' replicas against complete_scan
 SCANS_COUNT_TOL = 5e-3      # on the card: mean nearest-neighbour distance
                             # each way (m; a fifth of the 0.05 m voxel),
@@ -1002,11 +1022,99 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
     return launches
 
 
+def run_unfused_completion(cfg, x_init, part, noisy, solver, out_fused,
+                           fused, kernels, steps, dev):
+    """The completion of phase 3 with `tpu.fuse_classfree` off, on a task
+    of the same seed (the same weights) and the same offset and noise: the
+    guided pair as two G=1 forwards over one pyramid a step. Checks the
+    launches against the fused run's (A1 twice per denoiser conv, the
+    stem's included, so DENOISER_CONVS more a step, the encoder's
+    unchanged; B1 and its plan taps unchanged, one pyramid a step; C1
+    unchanged, 5 matches against each bank), zero overflow and a finite
+    output; reports ms per step beside the fused run's and the mean
+    nearest-neighbour distance between the two clouds each way, which must
+    lie within SCANS_NN_TOL (the limit of two sound runs of one
+    computation); profiles one unfused step; then holds the float32
+    unfused guided eps against the fused one at the first step's t, within
+    UNFUSED_EPS_TOL of max|eps|. Returns the launches."""
+    import torch
+    from scipy.spatial import cKDTree
+    from lidiff_tpu_torch.models import diffusion
+    from lidiff_tpu_torch.utils import prof
+    ucfg = dict(cfg, tpu=dict(cfg["tpu"], fuse_classfree=False))
+    task = diffusion.DiffusionTask(ucfg, device=dev,
+                                   compute_dtype=torch.bfloat16, seed=0)
+    if task.fuse_classfree:
+        raise AssertionError("tpu.fuse_classfree: false was not read")
+    task.sample(x_init, part, torch.Generator(device=dev).manual_seed(2),
+                solver=solver)
+    _sync(dev)
+    for k in kernels.values():
+        k.launches = 0
+    out, total_s = prof.block_and_time(
+        task.sample, x_init, part, torch.Generator(device=dev).manual_seed(1),
+        solver=solver)
+    launches = {n: k.launches for n, k in kernels.items()}
+    _, enc_s = prof.block_and_time(task.encode_banks, part)
+    step_ms = (total_s - enc_s) / steps * 1e3
+    ovf = [int(v) for v in task.pyramid_full(out).overflows()]
+    a, b = out[0].float().cpu().numpy(), out_fused[0].float().cpu().numpy()
+    nn = max(float(cKDTree(b).query(a)[0].mean()),
+             float(cKDTree(a).query(b)[0].mean()))
+    # the encoders' convs and pyramids: once per bank and completion
+    a1_step = (launches["A1"] - 2 * (CONVS_PER_STEP - DENOISER_CONVS)) / steps
+    b1_step = (launches["B1"] - 2 * task.num_levels) / steps
+    log(f"unfused completion (tpu.fuse_classfree false, two G=1 forwards a "
+        f"step): {total_s:.3f} s, encoder {enc_s * 1e3:.1f} ms, "
+        f"{step_ms:.1f} ms/step against fused {fused['step_ms']:.1f} "
+        f"({step_ms / fused['step_ms']:.3f}x); launches {launches}, per "
+        f"step A1 {a1_step:g} B1 {b1_step:g} C1 "
+        f"{launches['C1'] / steps:g}; mean "
+        f"nearest-neighbour distance to the fused cloud {nn:.6f} m (limit "
+        f"{SCANS_NN_TOL} m); overflow at the output {ovf}")
+    if tuple(out.shape) != tuple(out_fused.shape) or \
+            not bool(torch.isfinite(out).all()) or any(ovf):
+        raise AssertionError("unfused completion output is not finite, has "
+                             "the wrong shape or overflows")
+    if nn > SCANS_NN_TOL:
+        raise AssertionError("the unfused completion lies beyond "
+                             "SCANS_NN_TOL of the fused one")
+    if dev == "cuda":
+        want = {"A1": fused["launches"]["A1"] + DENOISER_CONVS * steps,
+                **{n: fused["launches"][n]
+                   for n in ("B1", "B1 taps", "C1", "C1 scan", "C1 index")}}
+        for n, c in want.items():
+            if launches[n] != c:
+                raise AssertionError(f"unfused completion: kernel {n}: "
+                                     f"{launches[n]} launches, expected {c}")
+        banks = task.encode_banks(part)
+        t_first = int(solver.timesteps[0])
+        profile_step(lambda: task.denoise_pair(noisy, *banks, t_first),
+                     f"one unfused guided sampling step (t={t_first})")
+        del banks
+    del task, out
+    # float32: the unfused guided eps against the fused one at one t
+    task = diffusion.DiffusionTask(cfg, device=dev,
+                                   compute_dtype=torch.float32, seed=0)
+    banks = task.encode_banks(part)
+    t_first = int(solver.timesteps[0])
+    eps_f = task.denoise_pair(noisy, *banks, t_first)
+    task.fuse_classfree = False
+    eps_u = task.denoise_pair(noisy, *banks, t_first)
+    top = float(eps_f.abs().max())
+    err = float((eps_u - eps_f).abs().max()) / top
+    log(f"unfused guided eps against fused, float32, t={t_first}: max|diff| "
+        f"{err:.3e} of max|eps| {top:.3f} (limit {UNFUSED_EPS_TOL})")
+    if not err <= UNFUSED_EPS_TOL:
+        raise AssertionError("the unfused guided eps differs from the fused "
+                             "one")
+    return launches
+
+
 def run(steps: int, dev: str = "cuda"):
     """Phases 2-12 on `dev`; returns (kernel results, {path: launches} for
-    the sampling, int8 sampling, gather form, training, refiner training
-    and pipeline
-    paths)."""
+    the sampling, unfused sampling, int8 sampling, gather form, training,
+    refiner training and pipeline paths)."""
     import torch
     from lidiff_tpu_torch import config as cfg_mod
     from lidiff_tpu_torch.diffusion.dpm_solver import make_dpm_solver
@@ -1117,6 +1225,10 @@ def run(steps: int, dev: str = "cuda"):
         raise AssertionError("completion output is not finite or has the "
                              "wrong shape")
     del task
+    # ---- 3. the same completion with the guided pair unfused ----
+    unfused_launches = run_unfused_completion(
+        cfg, x_init, part, noisy, solver, out,
+        {"step_ms": step_ms, "launches": launches}, kernels, steps, dev)
     # ---- 10. the same completion with the int8 convs ----
     task_q = diffusion.DiffusionTask(cfg, device=dev,
                                      compute_dtype=torch.bfloat16, seed=0,
@@ -1144,7 +1256,8 @@ def run(steps: int, dev: str = "cuda"):
         run_cli(dev, tree)
         run_refine_cli(dev, tree)
         run_eval_clis(dev, tree, kernels)
-    return res, {"sampling": launches, "int8 sampling": int8_launches,
+    return res, {"sampling": launches, "sampling unfused": unfused_launches,
+                 "int8 sampling": int8_launches,
                  "gather form": gather_launches,
                  "training": train_launches,
                  f"training at batch {DIFF_BATCH}": batch_launches,
@@ -2307,7 +2420,9 @@ def run_pipeline(cfg, kernels, steps: int, dev):
     encoder and sampling, postprocess, refine; the bf16 run's .ply files
     with normals), launches, refined = diff x up_factor; then the
     metrics of `eval_path` against a synthetic ground truth, each with its
-    host time. Returns the int8 run's launches."""
+    host time. Both runs ask for bf16 by `compute_dtype` (the checkpoints'
+    `tpu.compute_dtype` is not read) and check that both tasks got it.
+    Returns the int8 run's launches."""
     import numpy as np
     import torch
     from lidiff_tpu_torch import config as cfg_mod
@@ -2316,16 +2431,14 @@ def run_pipeline(cfg, kernels, steps: int, dev):
     from lidiff_tpu_torch.training.trainer import CheckpointManager
     from lidiff_tpu_torch.utils import histogram_metrics, metrics
     n = N_PART * TILE
-    dcfg = dict(cfg, tpu=dict(cfg["tpu"], compute_dtype="bfloat16"))
     rcfg = cfg_mod.finalize_config(make_refine_cfg(
-        n, cfg["model"]["cr"], REFINE_UP,
-        {"capacity_fractions": [1.0] * 5, "compute_dtype": "bfloat16"}))
+        n, cfg["model"]["cr"], REFINE_UP, {"capacity_fractions": [1.0] * 5}))
     gt = ring_scan(2 * n, seed=42)[0]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         exps = {}
         for name, task in (
-                ("diff_net", diffusion.DiffusionTask(dcfg, device=dev)),
+                ("diff_net", diffusion.DiffusionTask(cfg, device=dev)),
                 ("refine_net", refine.RefineTask(rcfg, device=dev))):
             exps[name] = os.path.join(tmp, name)
             CheckpointManager(os.path.join(exps[name], "checkpoints")).save(
@@ -2341,7 +2454,11 @@ def run_pipeline(cfg, kernels, steps: int, dev):
             what = "int8" if quant else "bf16"
             dc = pipe.DiffCompletion(exps["diff_net"], exps["refine_net"],
                                      steps, 6.0, device=dev,
+                                     compute_dtype=torch.bfloat16,
                                      conv_quant=quant)
+            if not (dc.task.compute_dtype is torch.bfloat16
+                    and dc.refine_task.compute_dtype is torch.bfloat16):
+                raise AssertionError(f"pipeline {what}: not bf16")
             points = pipe.load_pcd(bin_path)
             refine_counts = {}
             refine_fn, preprocess_fn = dc.refine, dc.preprocess_scan
@@ -2395,9 +2512,9 @@ def run_pipeline(cfg, kernels, steps: int, dev):
             out[what] = (refined, launches)
             del dc
         # ---- 15. complete_scans over two replicas on the one card ----
-        check_complete_scans(pipe, exps, [scan, ring_scan(PIPE_SCAN,
-                                                          seed=43)[0]],
-                             steps, dev)
+        scans = [scan, ring_scan(PIPE_SCAN, seed=43)[0]]
+        check_complete_scans(pipe, exps, scans, steps, dev)
+        check_cli_devices(pipe, exps, scans, steps, dev, tmp)
     pred = out["int8"][0]
     times, vals = {}, {}
 
@@ -2439,14 +2556,17 @@ def check_complete_scans(pipe, exps, scans, steps: int, dev) -> None:
     SCANS_COUNT_TOL. The control, the replica's output against
     `complete_scan` of the same scan with the other replica's generator,
     must lie beyond SCANS_NN_TOL: the limit tells a swapped or shared
-    generator from the atomics' noise."""
+    generator from the atomics' noise. Every pipeline and replica computes
+    in bf16."""
     import numpy as np
+    import torch
     from scipy.spatial import cKDTree
     from lidiff_tpu_torch.parallel import mesh
 
     def make(replica=None):
         p = pipe.DiffCompletion(exps["diff_net"], exps["refine_net"],
-                                steps, 6.0, seed=42, device=dev)
+                                steps, 6.0, seed=42, device=dev,
+                                compute_dtype=torch.bfloat16)
         if replica is not None:
             p.generator = mesh.rank_generator(42, replica, dev)
         return p
@@ -2456,8 +2576,12 @@ def check_complete_scans(pipe, exps, scans, steps: int, dev) -> None:
                    float(cKDTree(a).query(b)[0].mean()))
 
     t0 = time.perf_counter()
-    got = make().complete_scans(scans, devices=[dev, dev])
+    dc = make()
+    got = dc.complete_scans(scans, devices=[dev, dev])
     two_s = time.perf_counter() - t0
+    if {r.task.compute_dtype for rs in dc._replicas.values()
+            for r in rs} != {torch.bfloat16}:
+        raise AssertionError("complete_scans' replicas are not bf16")
     sound, control = [], []
     for j, scan in enumerate(scans):
         own = [make(j).complete_scan(scan) for _ in range(2)]
@@ -2492,12 +2616,92 @@ def check_complete_scans(pipe, exps, scans, steps: int, dev) -> None:
                              "generator: the limit does not tell them apart")
 
 
+@contextlib.contextmanager
+def pipeline_cli(pipe, env: dict, devices=None):
+    """Around calls of the pipeline CLI's `main`: `env` set in the
+    environment, every `DiffCompletion` it builds recorded in the list
+    yielded, and `_devices` giving `devices` where they are given; all put
+    back afterwards."""
+    built = []
+    cls, devs = pipe.DiffCompletion, pipe._devices
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    old = {k: os.environ.get(k) for k in env}
+    pipe.DiffCompletion = Recorded
+    if devices is not None:
+        pipe._devices = lambda dc: list(devices)
+    os.environ.update(env)
+    try:
+        yield built
+    finally:
+        pipe.DiffCompletion, pipe._devices = cls, devs
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def check_cli_devices(pipe, exps, scans, steps: int, dev, tmp: str) -> None:
+    """The pipeline CLI's multi-card branch on the one card: `main` over
+    two .bin scans with `_devices` giving [dev, dev] and
+    LIDIFF_COMPUTE_DTYPE=bfloat16: one "s/scan" line per scan, both scans'
+    .ply outputs with refined = diff x REFINE_UP, and the pipeline and its
+    two replicas in bf16."""
+    import numpy as np
+    import torch
+    from lidiff_tpu_torch.utils.ply import read_ply
+    scan_dir, out = os.path.join(tmp, "cli_scans"), os.path.join(tmp, "cli")
+    os.makedirs(scan_dir)
+    names = [f"{i:06d}.bin" for i in range(len(scans))]
+    for name, s in zip(names, scans):
+        np.concatenate([s, np.ones((len(s), 1), np.float32)], 1).tofile(
+            os.path.join(scan_dir, name))
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with pipeline_cli(pipe, {"LIDIFF_COMPUTE_DTYPE": "bfloat16"},
+                      [dev, dev]) as built, contextlib.redirect_stdout(said):
+        pipe.main(["-d", exps["diff_net"], "-r", exps["refine_net"], "-T",
+                   str(steps), "-s", "6.0", "-p", scan_dir, "-o", out]
+                  + (["--device", "cpu"] if dev == "cpu" else []))
+    total = time.perf_counter() - t0
+    lines = [l for l in said.getvalue().splitlines() if "s/scan" in l]
+    dc = built[0]
+    tasks = [dc.task, dc.refine_task] + [
+        t for rs in dc._replicas.values() for r in rs
+        for t in (r.task, r.refine_task)]
+    exp = os.path.join(out, f"diff_net_T{steps}_s6.0")
+    counts = []
+    for name in names:
+        stem = name.split(".")[0]
+        counts.append(tuple(
+            len(read_ply(os.path.join(exp, sub, f"{stem}.ply"))["points"])
+            for sub in ("diff", "refine")))
+    log(f"pipeline CLI over [{dev}, {dev}] (LIDIFF_COMPUTE_DTYPE=bfloat16): "
+        f"{total:.3f} s with building the pipeline; {lines}; (diff, refined) "
+        f"points {counts}; {len(tasks)} tasks in "
+        f"{sorted({str(t.compute_dtype) for t in tasks})}")
+    if len(lines) != len(names) or len(tasks) != 6 or any(
+            t.compute_dtype is not torch.bfloat16 for t in tasks):
+        raise AssertionError("the pipeline CLI did not complete each scan "
+                             "in bf16 over two replicas")
+    if not all(0 < d and r == REFINE_UP * d for d, r in counts):
+        raise AssertionError("the pipeline CLI over two replicas wrote "
+                             "wrong .ply files")
+
+
 def run_eval_clis(dev: str, tree: str, kernels) -> None:
     """The evaluation CLIs on the small tree `tree`, after the train and
     train_refine CLI phases: `map_from_scans`, the pipeline on both
     trained checkpoints with LIDIFF_CONV_QUANT=int8, and `eval_path` on its
-    .ply files (-p) and live (-d, -r)."""
+    .ply files (-p) and live (-d, -r); then the pipeline once more with
+    LIDIFF_COMPUTE_DTYPE=bfloat16, whose tasks must compute in bf16."""
     import numpy as np
+    import torch
     from lidiff_tpu_torch.tools import diff_completion_pipeline as pipe
     from lidiff_tpu_torch.tools import eval_path, map_from_scans
     dev_args = ["--device", "cpu"] if dev == "cpu" else []
@@ -2516,9 +2720,11 @@ def run_eval_clis(dev: str, tree: str, kernels) -> None:
             map_from_scans.main(["-p", seqs, "-s", "00"])
             for k in kernels.values():
                 k.launches = 0
-            pipe.main(["-d", diff_exp, "-r", refine_exp, "-T", "2", "-s",
-                       "6.0", "-p", os.path.join(seq_dir, "velodyne"), "-o",
-                       out] + dev_args)
+            with pipeline_cli(pipe, {}) as built:
+                pipe.main(["-d", diff_exp, "-r", refine_exp, "-T", "2", "-s",
+                           "6.0", "-p", os.path.join(seq_dir, "velodyne"),
+                           "-o", out] + dev_args)
+            int8_dtype = built[0].task.compute_dtype
             a4 = kernels["A4"].launches
             saved = os.path.join(out, "chip-smoke-cli_T2_s6.0", "refine")
             res_p = eval_path.main(["-p", saved, "--data", seq_dir])
@@ -2545,6 +2751,21 @@ def run_eval_clis(dev: str, tree: str, kernels) -> None:
     with open(os.path.join(saved, "res_log.yaml")) as f:
         if json.load(f) != res_p:
             raise AssertionError("eval_path -p wrote another res_log.yaml")
+    out_bf16 = os.path.join(tree, "results_bf16")
+    with pipeline_cli(pipe, {"LIDIFF_COMPUTE_DTYPE": "bfloat16"}) as built, \
+            contextlib.redirect_stdout(said):
+        pipe.main(["-d", diff_exp, "-r", refine_exp, "-T", "2", "-s", "6.0",
+                   "-p", os.path.join(seq_dir, "velodyne"), "-o", out_bf16]
+                  + dev_args)
+    dtypes = (built[0].task.compute_dtype, built[0].refine_task.compute_dtype)
+    n_bf16 = len([f for f in os.listdir(os.path.join(
+        out_bf16, "chip-smoke-cli_T2_s6.0", "refine")) if f.endswith(".ply")])
+    log(f"pipeline CLI: with LIDIFF_CONV_QUANT=int8 alone in {int8_dtype}; "
+        f"with LIDIFF_COMPUTE_DTYPE=bfloat16 the diffusion and refine tasks "
+        f"in {dtypes[0]}, {dtypes[1]}, {n_bf16} refined .ply files")
+    if n_bf16 != 4 or any(d is not torch.bfloat16 for d in dtypes):
+        raise AssertionError("the pipeline CLI did not take its compute "
+                             "dtype from LIDIFF_COMPUTE_DTYPE")
 
 
 _CATEGORIES = (("A3 conv3_columns_dw", ("conv3_columns_dw",)),
@@ -2574,24 +2795,35 @@ def _category(kernel_name: str) -> str:
 def profile_step(step, label: str) -> None:
     """Device time by kernel over one call of `step` (`utils/prof.py`:
     torch.profiler through `trace`, the call inside `annotate` and timed by
-    `block_and_time`), and the device's busy share of its wall time. `step`
-    returns tensors on the card, which `block_and_time` waits for."""
+    `block_and_time`), and the device's busy share of its wall time; beside
+    it the A1 kernels the profile holds against the launches A1's wrapper
+    counted in the call (fewer: the profile lost kernels, and its times
+    are short). `step` returns tensors on the card, which `block_and_time`
+    waits for."""
+    import torch
     from lidiff_tpu_torch.utils import prof
+    a1 = kernel_table()["A1"]
+    before = a1.launches
     with prof.trace() as p:
         with prof.annotate(label):
             _, wall_s = prof.block_and_time(step)
+    launched = a1.launches - before
     wall_us = wall_s * 1e6
     by_name = prof.device_time_by_kernel(p)
     busy = sum(by_name.values())
     if not by_name:
         log("profile: the profiler saw no device events")
         return
+    seen = sum(1 for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _category(e.name) == "A1 conv3_columns")
     cats: dict[str, float] = {}
     for name, us in by_name.items():
         cat = _category(name)
         cats[cat] = cats.get(cat, 0.0) + us
     log(f"profile of {label}: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)")
+        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%); A1 kernels in "
+        f"the profile {seen} of {launched} launched")
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
         log(f"  {cat:22s} {us / 1e3:9.2f} ms  {100 * us / busy:5.1f}%")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -2675,6 +2907,7 @@ def main(argv=None) -> int:
                "host C++)", "pipeline")}
     for path, names in (
             ("sampling", ("A1", "B1", "B1 taps", "C1")),
+            ("sampling unfused", ("A1", "B1", "B1 taps", "C1")),
             ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1")),
             ("gather form", ("A1", "B1")),
             ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1")),

@@ -12,6 +12,8 @@ from __future__ import annotations
 import json
 import os
 
+import torch
+
 
 def _round128(x: int) -> int:
     """Capacities are multiples of 128 (the JAX package's kernel tile); kept
@@ -54,7 +56,7 @@ DEFAULT_TPU = {
     "part_capacities": None,     # derived from data.num_points / 10
     "capacity_fractions": None,  # per-level fractions of num_points
     "num_levels": 5,
-    "compute_dtype": "float32",  # or "bfloat16" for the fast path
+    "compute_dtype": "float32",  # read by nothing: LIDIFF_COMPUTE_DTYPE
     "remat": True,               # recompute the UNet stages in training
 }
 
@@ -64,6 +66,16 @@ def conv_quant_from_env() -> bool:
     variable the JAX package reads; only the command-line entry points read
     it, and pass it on as the models' `conv_quant` argument."""
     return os.environ.get("LIDIFF_CONV_QUANT", "").lower() == "int8"
+
+
+def compute_dtype_from_env() -> torch.dtype:
+    """LIDIFF_COMPUTE_DTYPE=bf16 or bfloat16 (any case) selects bfloat16
+    convs, gates and matches, anything else float32: the rule of
+    lidiff_tpu/ops/sparse_conv.py:35-37. The tasks take it when they are
+    given no `compute_dtype`; the config's `tpu.compute_dtype` decides
+    nothing, as in the JAX package."""
+    name = os.environ.get("LIDIFF_COMPUTE_DTYPE", "float32").lower()
+    return torch.bfloat16 if name in ("bf16", "bfloat16") else torch.float32
 
 
 def load_config(path: str) -> dict:

@@ -8,8 +8,10 @@ prediction's MSE plus the mean/std regularizer.
 
 Classifier-free completion sampling: the partial-scan encoder runs once per
 completion for the conditioned bank and for the unconditioned (zeros) bank,
-then every solver step re-voxelizes the moving cloud and runs the cond and
-uncond denoiser streams fused as G=2 groups over one shared pyramid.
+then every solver step re-voxelizes the moving cloud into one pyramid and
+runs the cond and uncond denoiser streams over it: fused as G=2 groups in
+one forward, or with the config's `tpu.fuse_classfree: false` as two G=1
+forwards (lidiff_tpu/models/diffusion.py:106,207-218).
 `sample` runs the solver loop of `make_chunked_sampler` in one chunk.
 """
 
@@ -21,6 +23,7 @@ import torch
 from torch import nn
 
 from lidiff_tpu_torch import resolve_device
+from lidiff_tpu_torch.config import compute_dtype_from_env
 from lidiff_tpu_torch.diffusion.ddpm import make_ddpm, q_sample
 from lidiff_tpu_torch.diffusion.dpm_solver import (DPMSolver, init_state,
                                                    make_dpm_solver,
@@ -28,9 +31,6 @@ from lidiff_tpu_torch.diffusion.dpm_solver import (DPMSolver, init_state,
 from lidiff_tpu_torch.models.blocks import init_weights, set_bn_group
 from lidiff_tpu_torch.models.minkunet import MinkGlobalEnc, MinkUNetDiff
 from lidiff_tpu_torch.ops.grid import Pyramid, build_pyramid
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "bf16": torch.bfloat16}
 
 
 class DiffusionModel(nn.Module):
@@ -80,25 +80,27 @@ class DiffusionTask:
     """Config, model, the training loss and the sampling entry points.
 
     Runs on `device` (default: the card) with `compute_dtype` (default: the
-    config's `tpu.compute_dtype`). The weights are a seeded random init
-    (`seed`); `lidiff_tpu_torch.convert.load_jax_variables` replaces them
-    with a JAX checkpoint's. `group`, a torch.distributed process group,
-    syncs the training BatchNorm moments over its ranks (None: this
-    process alone); the rest of the loss, the classifier-free coin and the
-    mean/std regularizer included, is each rank's own on its rows, as each
-    replica's is in lidiff_tpu/parallel/mesh.py. `conv_quant` selects the
-    int8 eval conv (kernel A4) for sampling; training never quantizes.
-    The config's `tpu.remat` (default True, as lidiff_tpu/models/
-    diffusion.py:93 reads it) recomputes the stages' activations in the
-    backward pass of training."""
+    one LIDIFF_COMPUTE_DTYPE names, `config.compute_dtype_from_env`; the
+    config's `tpu.compute_dtype` is not read). The weights are a seeded
+    random init (`seed`); `lidiff_tpu_torch.convert.load_jax_variables`
+    replaces them with a JAX checkpoint's. `group`, a torch.distributed
+    process group, syncs the training BatchNorm moments over its ranks
+    (None: this process alone); the rest of the loss, the classifier-free
+    coin and the mean/std regularizer included, is each rank's own on its
+    rows, as each replica's is in lidiff_tpu/parallel/mesh.py. `conv_quant`
+    selects the int8 eval conv (kernel A4) for sampling; training never
+    quantizes. The config's `tpu.remat` (default True, as
+    lidiff_tpu/models/diffusion.py:93 reads it) recomputes the stages'
+    activations in the backward pass of training. Its `tpu.fuse_classfree`
+    (default True) runs the guided pair of `denoise_pair` as one G=2
+    forward; False runs two G=1 forwards."""
 
     def __init__(self, cfg, device=None, compute_dtype=None, seed: int = 0,
                  conv_quant: bool = False, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
-            compute_dtype = DTYPES[cfg["tpu"].get("compute_dtype",
-                                                   "float32")]
+            compute_dtype = compute_dtype_from_env()
         self.compute_dtype = compute_dtype
         d = cfg["diff"]
         self.coeffs = make_ddpm(d["beta_func"], d["t_steps"],
@@ -126,6 +128,7 @@ class DiffusionTask:
         self.w_uncond = float(cfg["train"]["uncond_w"])
         self.uncond_prob = float(cfg["train"]["uncond_prob"])
         self.reg_weight = float(cfg["diff"]["reg_weight"])
+        self.fuse_classfree = bool(cfg["tpu"].get("fuse_classfree", True))
 
     # ---------------- geometry ----------------
 
@@ -215,15 +218,20 @@ class DiffusionTask:
     @eval_no_grad
     def denoise_pair(self, points, feats_c, geom_c, feats_u, geom_u, t: int,
                      w_uncond: float | None = None):
-        """Classifier-free guided noise prediction at the current cloud, as
-        one fused G=2 forward over one pyramid."""
+        """Classifier-free guided noise prediction at the current cloud:
+        the cond and uncond streams over one pyramid, as one fused G=2
+        forward, or as two G=1 forwards when `fuse_classfree` is off."""
         w = self.w_uncond if w_uncond is None else w_uncond
         pyr = self.pyramid_full(points)
         tvec = torch.full((points.shape[0],), t, dtype=torch.int32,
                           device=points.device)
-        eps = self.model.denoise(pyr, [(feats_c, geom_c), (feats_u, geom_u)],
-                                 tvec)
-        eps_c, eps_u = eps[..., 0, :], eps[..., 1, :]
+        if self.fuse_classfree:
+            eps = self.model.denoise(
+                pyr, [(feats_c, geom_c), (feats_u, geom_u)], tvec)
+            eps_c, eps_u = eps[..., 0, :], eps[..., 1, :]
+        else:
+            eps_c = self.model.denoise(pyr, [(feats_c, geom_c)], tvec)
+            eps_u = self.model.denoise(pyr, [(feats_u, geom_u)], tvec)
         return eps_u + w * (eps_c - eps_u)
 
     def make_chunked_sampler(self, w_uncond: float | None = None,

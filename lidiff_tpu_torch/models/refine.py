@@ -9,8 +9,9 @@ from __future__ import annotations
 import torch
 
 from lidiff_tpu_torch import resolve_device
+from lidiff_tpu_torch.config import compute_dtype_from_env
 from lidiff_tpu_torch.models.blocks import init_weights, set_bn_group
-from lidiff_tpu_torch.models.diffusion import DTYPES, eval_no_grad
+from lidiff_tpu_torch.models.diffusion import eval_no_grad
 from lidiff_tpu_torch.models.minkunet import MinkUNet
 from lidiff_tpu_torch.ops.chamfer import chamfer_distance
 from lidiff_tpu_torch.ops.grid import Pyramid, build_pyramid
@@ -20,11 +21,12 @@ class RefineTask:
     """Config, model, the training loss and the eval forward.
 
     Runs on `device` (default: the card) with `compute_dtype` (default: the
-    config's `tpu.compute_dtype`). The weights are a seeded random init
-    (`seed`); `lidiff_tpu_torch.convert.load_jax_variables` replaces them
-    with a JAX checkpoint's. `group`, a torch.distributed process group,
-    syncs the training BatchNorm moments over its ranks (None: this
-    process alone). `conv_quant` selects the int8 eval conv
+    one LIDIFF_COMPUTE_DTYPE names, `config.compute_dtype_from_env`; the
+    config's `tpu.compute_dtype` is not read). The weights are a seeded
+    random init (`seed`); `lidiff_tpu_torch.convert.load_jax_variables`
+    replaces them with a JAX checkpoint's. `group`, a torch.distributed
+    process group, syncs the training BatchNorm moments over its ranks
+    (None: this process alone). `conv_quant` selects the int8 eval conv
     (kernel A4) for `forward`; training never quantizes. `remat` (default
     True, the JAX `MinkUNet`'s default: the JAX refiner reads no config key
     for it) recomputes the stages' activations in the backward pass of
@@ -35,8 +37,7 @@ class RefineTask:
         self.cfg = cfg
         self.device = resolve_device(device)
         if compute_dtype is None:
-            compute_dtype = DTYPES[cfg["tpu"].get("compute_dtype",
-                                                  "float32")]
+            compute_dtype = compute_dtype_from_env()
         self.compute_dtype = compute_dtype
         self.up_factor = int(cfg["train"]["up_factor"])
         self.model = MinkUNet(out_channels=3 * self.up_factor,

@@ -12,8 +12,14 @@ F1 on the card), tile 10x, classifier-free DPM-Solver sampling, range and
 z-window crop, refinement offsets (up_factor points per point), and .ply
 outputs with normals under OUT/<exp>/{diff,refine}/, plus
 OUT/<exp>/exp_config.yaml.
-It runs on the card unless `--device cpu` is given; LIDIFF_CONV_QUANT=int8
-runs every eval column conv with Cin >= 32 as the int8 conv (kernel A4).
+It runs on the card unless `--device cpu` is given; with more than one card
+and more than one scan it completes the scans in groups, one scan per card
+at a time (`complete_scans`), and prints the time per scan of each group.
+LIDIFF_COMPUTE_DTYPE=bf16 (or bfloat16) computes in bfloat16 (default
+float32; the checkpoint's `tpu.compute_dtype` is not read),
+LIDIFF_CONV_QUANT=int8 runs every eval column conv with Cin >= 32 as the
+int8 conv (kernel A4), and the sampler runs LIDIFF_SAMPLE_CHUNK solver
+steps a chunk (default 10), as the JAX pipeline does.
 `complete_scan` returns (refined, diff), the tuple the JAX package's
 eval_path fix expects.
 """
@@ -30,7 +36,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from lidiff_tpu_torch.config import (conv_quant_from_env, finalize_config,
+from lidiff_tpu_torch.config import (compute_dtype_from_env,
+                                     conv_quant_from_env, finalize_config,
                                      save_config)
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
 from lidiff_tpu_torch.models.refine import RefineTask
@@ -70,15 +77,18 @@ def _restore(ckpt: CheckpointManager, model, device, what: str) -> None:
 class DiffCompletion:
     """Loads both checkpoints and serves `complete_scan`.
 
-    Runs on `device` (default: the card). `conv_quant` selects the int8
-    eval conv for the encoder, the denoiser and the refiner. With several
-    devices `complete_scans` keeps one replica of both tasks on each, with
-    its own generator, and completes the scans in groups, one scan per
-    device at a time."""
+    Runs on `device` (default: the card) in `compute_dtype` (default: the
+    one LIDIFF_COMPUTE_DTYPE names). `conv_quant` selects the int8 eval
+    conv for the encoder, the denoiser and the refiner. The sampler runs
+    LIDIFF_SAMPLE_CHUNK solver steps a chunk (default 10; the output of a
+    scan is the same whatever the chunk). With several devices
+    `complete_scans` keeps one replica of both tasks on each, with its own
+    generator, and completes the scans in groups, one scan per device at a
+    time."""
 
     def __init__(self, diff_ckpt_dir: str, refine_ckpt_dir: str | None,
                  denoising_steps: int, cond_weight: float, seed: int = 42,
-                 device=None, conv_quant: bool = False):
+                 device=None, compute_dtype=None, conv_quant: bool = False):
         ckpt = CheckpointManager(_ckpt_dir(diff_ckpt_dir))
         hparams = ckpt.load_hparams()
         if hparams is None:
@@ -95,8 +105,10 @@ class DiffCompletion:
 
         self.seed, self.conv_quant = seed, conv_quant
         self.task = DiffusionTask(self.cfg, device=device,
+                                  compute_dtype=compute_dtype,
                                   conv_quant=conv_quant)
         self.device = self.task.device
+        self.compute_dtype = self.task.compute_dtype
         _restore(ckpt, self.task.model, self.device, "diffusion")
 
         self.refine_task = None
@@ -105,6 +117,7 @@ class DiffCompletion:
             rh = rckpt.load_hparams()
             rcfg = finalize_config(rh) if rh else self.cfg
             self.refine_task = RefineTask(rcfg, device=self.device,
+                                          compute_dtype=self.compute_dtype,
                                           conv_quant=conv_quant)
             _restore(rckpt, self.refine_task.model, self.device, "refine")
 
@@ -112,6 +125,7 @@ class DiffCompletion:
         self.n_part = self.num_points // 10
         self.max_range = float(self.cfg["data"]["max_range"])
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._chunk = int(os.environ.get("LIDIFF_SAMPLE_CHUNK", 10))
         self._overflow_checked = False
         self.times: dict[str, float] = {}   # host seconds per stage, last scan
         self._replicas: dict[tuple, list] = {}   # devices -> replicas
@@ -157,10 +171,10 @@ class DiffCompletion:
         part = np.ascontiguousarray(x_init[:, :self.n_part])
         self._check_overflow(x_init)
         t1 = time.perf_counter()
-        completed = self.task.sample(
+        completed = self.task.sample_chunked(
             torch.from_numpy(x_init).to(self.device),
             torch.from_numpy(part).to(self.device),
-            self.generator).cpu().numpy()[0]
+            self.generator, chunk=self._chunk).cpu().numpy()[0]
         t2 = time.perf_counter()
         post = self.postprocess_scan(completed, x_init)
         t3 = time.perf_counter()
@@ -176,11 +190,13 @@ class DiffCompletion:
         replica 0 draws what this pipeline's fresh generator draws)."""
         r = copy.copy(self)
         r.task = DiffusionTask(self.cfg, device=device,
+                               compute_dtype=self.compute_dtype,
                                conv_quant=self.conv_quant)
         r.task.model.load_state_dict(self.task.model.state_dict())
         r.device = r.task.device
         if self.refine_task is not None:
             r.refine_task = RefineTask(self.refine_task.cfg, device=r.device,
+                                       compute_dtype=self.compute_dtype,
                                        conv_quant=self.conv_quant)
             r.refine_task.model.load_state_dict(
                 self.refine_task.model.state_dict())
@@ -190,18 +206,16 @@ class DiffCompletion:
 
     def complete_scans(self, scans: list, devices=None):
         """(refined, diff) for each scan, in input order. With n > 1
-        `devices` (default: every card when this pipeline is on the card)
-        the scans go in groups of n, scan j of a group to replica j, the
-        replicas running at once; the last group is padded with copies of
-        its last scan, whose outputs are dropped (lidiff_tpu's
+        `devices` (default: `_devices`, every card when this pipeline is on
+        the card) the scans go in groups of n, scan j of a group to replica
+        j, the replicas running at once; the last group is padded with
+        copies of its last scan, whose outputs are dropped (lidiff_tpu's
         `complete_scans`). Replica j's outputs equal `complete_scan` of a
         pipeline whose generator is `mesh.rank_generator(seed, j)`, on the
         scans j, j + n, ... and the padding in that order. With one device,
-        one scan after the other here."""
-        if devices is None:
-            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
-            devices = [f"cuda:{i}" for i in range(n)]
-        devices = [str(torch.device(d)) for d in devices]
+        or one scan, one scan after the other here."""
+        devices = [str(torch.device(d))
+                   for d in (_devices(self) if devices is None else devices)]
         n = len(devices)
         if n <= 1 or len(scans) <= 1:
             return [self.complete_scan(s) for s in scans]
@@ -264,6 +278,14 @@ class DiffCompletion:
         return up.reshape(-1, 3)
 
 
+def _devices(dc: DiffCompletion) -> list[str]:
+    """The devices `main` and `complete_scans` spread scans over: every
+    card when the pipeline is on the card, else its one device."""
+    if dc.device.type == "cuda":
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [str(dc.device)]
+
+
 def write_outputs(out_dir: str, fname: str, refined: np.ndarray,
                   diff_scan: np.ndarray) -> None:
     """<out_dir>/{refine,diff}/<stem>.ply with PCA normals."""
@@ -299,6 +321,7 @@ def main(argv=None) -> None:
            + f"_T{args.denoising_steps}_s{args.cond_weight}")
     dc = DiffCompletion(args.diff, args.refine, args.denoising_steps,
                         args.cond_weight, device=args.device,
+                        compute_dtype=compute_dtype_from_env(),
                         conv_quant=conv_quant_from_env())
     out_dir = os.path.join(args.out, exp)
     os.makedirs(os.path.join(out_dir, "refine"), exist_ok=True)
@@ -309,6 +332,22 @@ def main(argv=None) -> None:
              if f.endswith((".bin", ".ply", ".npy"))]
     if args.max_scans:
         files = files[:args.max_scans]
+    devices = _devices(dc)
+    n = len(devices)
+    if n > 1 and len(files) > 1:
+        # one scan per device at a time, as lidiff_tpu's main
+        for i0 in range(0, len(files), n):
+            group = files[i0:i0 + n]
+            scans = [load_pcd(os.path.join(args.path, f)) for f in group]
+            start = time.time()
+            results = dc.complete_scans(scans, devices)
+            dt = time.time() - start
+            for fname, (refined, diff_scan) in zip(group, results):
+                print(f"{fname}: {dt / len(group):.3f}s/scan "
+                      f"({len(diff_scan)} diff pts, {len(refined)} refined "
+                      f"pts)")
+                write_outputs(out_dir, fname, refined, diff_scan)
+        return
     for fname in files:
         points = load_pcd(os.path.join(args.path, fname))
         start = time.time()

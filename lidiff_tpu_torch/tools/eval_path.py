@@ -6,9 +6,10 @@ argparse in place of click).
         [-m MAX_RANGE] [--max_scans N] [--device cpu]
 
 Takes each scan's completion, from the .ply files of a pipeline run (`-p`)
-or completed live (`-d`, `-r`; LIDIFF_CONV_QUANT=int8 selects the int8
-convs), rebuilds its ground truth from the sequence's map_clean.npy (range
-crop, scan frame, z in (-4, 4.4), the 10 m viewpoint filter), and
+or completed live (`-d`, `-r`; LIDIFF_COMPUTE_DTYPE=bf16 computes in
+bfloat16, LIDIFF_CONV_QUANT=int8 selects the int8 convs), rebuilds its
+ground truth from the sequence's map_clean.npy (range crop, scan frame, z
+in (-4, 4.4), the 10 m viewpoint filter), and
 accumulates JSD 3D and BEV, RMSE, IoU at 0.5/0.2/0.1 m, Chamfer distance
 and PR-AUC. It writes res_log.yaml (a JSON body, with the JAX package's
 keys) into the `-p` directory, or the current one.
@@ -22,7 +23,8 @@ import os
 
 import numpy as np
 
-from lidiff_tpu_torch.config import conv_quant_from_env
+from lidiff_tpu_torch.config import (compute_dtype_from_env,
+                                     conv_quant_from_env)
 from lidiff_tpu_torch.data import preprocess
 from lidiff_tpu_torch.data.collation import viewpoint_filter
 from lidiff_tpu_torch.tools.diff_completion_pipeline import DiffCompletion
@@ -84,7 +86,8 @@ def main(argv=None) -> dict:
     if args.diff:
         diff_completion = DiffCompletion(
             args.diff, args.refine, args.denoising_steps, args.cond_weight,
-            device=args.device, conv_quant=conv_quant_from_env())
+            device=args.device, compute_dtype=compute_dtype_from_env(),
+            conv_quant=conv_quant_from_env())
 
     data = args.data
     poses = preprocess.load_poses(os.path.join(data, "calib.txt"),

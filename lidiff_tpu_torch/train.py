@@ -14,8 +14,11 @@ on. `--test` samples the validation split with the reference's test
 protocol and writes one .ply per scan under
 experiments/<id>/generated_pcd/<seq>/; with `-w` it takes the
 checkpoint's hparams and grafts this config's inference settings onto
-them. LIDIFF_CONV_QUANT=int8 runs the sampling's eval convs as the int8
-conv (kernel A4); training never quantizes.
+them. LIDIFF_COMPUTE_DTYPE=bf16 (or bfloat16) computes the convs, gates
+and matches in bfloat16, as in the JAX package (default float32; the
+config's `tpu.compute_dtype` is not read). LIDIFF_CONV_QUANT=int8 runs the
+sampling's eval convs as the int8 conv (kernel A4); training never
+quantizes.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import time
 import numpy as np
 import torch
 
-from lidiff_tpu_torch.config import (conv_quant_from_env, finalize_config,
+from lidiff_tpu_torch.config import (compute_dtype_from_env,
+                                     conv_quant_from_env, finalize_config,
                                      load_config, save_config)
 from lidiff_tpu_torch.data.datasets import dataloaders
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
@@ -75,6 +79,7 @@ def _run(rank: int, world: int, group, device, args, cfg) -> None:
     hparams, checkpoints, logs and validations."""
     set_deterministic()
     task = DiffusionTask(cfg, device=device, seed=42,
+                         compute_dtype=compute_dtype_from_env(),
                          conv_quant=conv_quant_from_env(), group=group)
     dev = task.device
     data = dataloaders[cfg["data"]["dataloader"]](cfg)

@@ -10,7 +10,9 @@ on the card unless `--device cpu` is given; train.n_gpus > 1 starts one
 process per card, as `lidiff_tpu_torch.train` does. One validation batch runs
 before training, 5% of the validation split every five epochs, and `--test`
 evaluates the whole split. A validation that fails raises: the JAX CLI
-prints the error and trains on. LIDIFF_CONV_QUANT=int8 runs the eval
+prints the error and trains on. LIDIFF_COMPUTE_DTYPE=bf16 (or bfloat16)
+computes the convs in bfloat16 (default float32; the config's
+`tpu.compute_dtype` is not read); LIDIFF_CONV_QUANT=int8 runs the eval
 forward's convs as the int8 conv (kernel A4); training never quantizes.
 """
 
@@ -24,7 +26,8 @@ import time
 import numpy as np
 import torch
 
-from lidiff_tpu_torch.config import (conv_quant_from_env, load_config,
+from lidiff_tpu_torch.config import (compute_dtype_from_env,
+                                     conv_quant_from_env, load_config,
                                      save_config)
 from lidiff_tpu_torch.data.datasets import dataloaders_refine
 from lidiff_tpu_torch.models.refine import RefineTask
@@ -64,6 +67,7 @@ def _run(rank: int, world: int, group, device, args, cfg) -> None:
     hparams, checkpoints, logs and validations."""
     np.random.seed(42)
     task = RefineTask(cfg, device=device, seed=42,
+                      compute_dtype=compute_dtype_from_env(),
                       conv_quant=conv_quant_from_env(), group=group)
     data = dataloaders_refine[cfg["data"]["dataloader"]](cfg)
 

@@ -18,8 +18,8 @@ from lidiff_tpu.models.diffusion import DiffusionTask as JaxTask
 from lidiff_tpu_torch.config import finalize_config
 from lidiff_tpu_torch.convert import flax_to_state_dict, load_jax_variables
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
-from tests.torch_parity_helpers import (B, CFG, NP, TILE, random_variables,
-                                        ring_scan, to_jax)
+from tests.torch_parity_helpers import (B, CFG, NP, TILE, one_thread,
+                                        random_variables, ring_scan, to_jax)
 
 ATOL = 1e-4
 
@@ -122,3 +122,41 @@ def test_denoiser_eps(tasks, scan, banks, groups):
                                    tg_u, 55).numpy()
         np.testing.assert_allclose(got_pair, ref_pair,
                                    atol=(2 * w + 1) * ATOL, rtol=0)
+
+
+def test_unfused_denoise_pair(tasks, scan, banks, one_thread):
+    """`tpu.fuse_classfree: false`: the guided pair as two G=1 forwards over
+    one pyramid, against the JAX package's unfused `denoise_pair` on the
+    same weights, banks, points and t within (2w + 1) ATOL (w = 6 scales
+    the eps difference, as in test_denoiser_eps), and against the port's
+    fused pair within (2w + 1) 1e-5: the same float32 products, the G=2
+    GEMMs summing them in other blocks."""
+    _, _, tt, variables = tasks
+    (jf_c, jg_c, jf_u, jg_u), (tf_c, tg_c, tf_u, tg_u) = banks
+    x, t = scan[1], 55
+    cfg = dict(CFG, tpu=dict(CFG["tpu"], fuse_classfree=False))
+    jt = JaxTask(jax_finalize(cfg))
+    assert not jt.fuse_classfree
+    ref = np.asarray(jax.jit(lambda v, p: jt.denoise_pair(
+        v, p, jf_c, jg_c, jf_u, jg_u, t))(to_jax(variables), jnp.asarray(x)))
+
+    tu = DiffusionTask(finalize_config(cfg), device="cpu")
+    load_jax_variables(tu.model, variables)
+    assert not tu.fuse_classfree and tt.fuse_classfree
+    calls = []
+    denoise = tu.model.denoise
+
+    def spy(pyr, bank, tvec):
+        calls.append((pyr, len(bank)))
+        return denoise(pyr, bank, tvec)
+    tu.model.denoise = spy
+    got = tu.denoise_pair(torch.from_numpy(x), tf_c, tg_c, tf_u, tg_u,
+                          t).numpy()
+    assert [g for _, g in calls] == [1, 1] and calls[0][0] is calls[1][0]
+    w = CFG["train"]["uncond_w"]
+    assert got.shape == ref.shape == x.shape
+    np.testing.assert_allclose(got, ref, atol=(2 * w + 1) * ATOL, rtol=0)
+    fused = tt.denoise_pair(torch.from_numpy(x), tf_c, tg_c, tf_u, tg_u,
+                            t).numpy()
+    np.testing.assert_allclose(got, fused, atol=(2 * w + 1) * 1e-5, rtol=0)
+    assert np.abs(got).max() > 0.1

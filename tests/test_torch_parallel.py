@@ -23,7 +23,8 @@ thread. Every rank runs, in this order:
 
 `DiffCompletion.complete_scans(devices=["cpu", "cpu"])` on three scans (the
 second group padded) must equal `complete_scan` with each replica's
-generator.
+generator, and the pipeline CLI over two devices must write what
+`complete_scans` returns.
 
 Tolerances: the moments rtol 1e-5 (float32 sums over other splits); the
 training step's loss and metrics rtol 1e-4, each gradient within 2e-3 of
@@ -438,6 +439,47 @@ def test_complete_scans_over_two_devices(checkpoints):
     # one-device loop's first
     np.testing.assert_array_equal(pipeline().complete_scans(scans[:1])[0][1],
                                   want[0][1])
+
+
+def test_pipeline_cli_over_two_devices(checkpoints, tmp_path, monkeypatch,
+                                       capsys):
+    """The pipeline CLI with two devices (`_devices` patched to two CPU
+    replicas) on three scans: one "s/scan" line per scan, and .ply outputs
+    equal to those of `complete_scans(devices=["cpu", "cpu"])` called on
+    each group of two, as lidiff_tpu's main calls it (the last group, one
+    scan, is the pipeline's own `complete_scan`, as in lidiff_tpu's
+    `complete_scans`)."""
+    from lidiff_tpu_torch.tools import diff_completion_pipeline as tpipe
+    from lidiff_tpu_torch.utils.ply import read_ply
+    scans = [_scan(s) for s in (3, 4, 5)]
+    scan_dir = tmp_path / "scans"
+    scan_dir.mkdir()
+    names = [f"{i:06d}.bin" for i in range(3)]
+    for name, s in zip(names, scans):
+        np.concatenate([s, np.ones((len(s), 1), np.float32)], 1).tofile(
+            str(scan_dir / name))
+    monkeypatch.setattr(tpipe, "_devices", lambda dc: ["cpu", "cpu"])
+    out = tmp_path / "out"
+    tpipe.main(["-d", checkpoints["diff_net"], "-r",
+                checkpoints["refine_net"], "-T", "2", "-s", "6.0", "-p",
+                str(scan_dir), "-o", str(out), "--device", "cpu"])
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if "s/scan" in l]
+    assert [l.split(":")[0] for l in lines] == names
+    ref = tpipe.DiffCompletion(checkpoints["diff_net"],
+                               checkpoints["refine_net"], 2, 6.0,
+                               device="cpu")
+    want = [r for i0 in (0, 2)
+            for r in ref.complete_scans(scans[i0:i0 + 2], ["cpu", "cpu"])]
+    exp = out / "diff_net_T2_s6.0"
+    for name, line, (r_want, d_want) in zip(names, lines, want):
+        stem = name.split(".")[0]
+        diff = read_ply(str(exp / "diff" / f"{stem}.ply"))["points"]
+        refined = read_ply(str(exp / "refine" / f"{stem}.ply"))["points"]
+        np.testing.assert_array_equal(diff, d_want, err_msg=name)
+        np.testing.assert_array_equal(refined, r_want, err_msg=name)
+        assert len(refined) == UP * len(diff) > 0
+        assert f"({len(diff)} diff pts, {len(refined)} refined pts)" in line
 
 
 def test_init_ranks_defaults_to_the_card(tmp_path):

@@ -13,6 +13,7 @@ float32 layers summed in other orders); the converter exactly."""
 import functools
 import json
 import os
+import shutil
 import types
 
 import jax
@@ -30,6 +31,7 @@ from lidiff_tpu.tools import diff_completion_pipeline as jpipe
 from lidiff_tpu.tools import eval_path as jeval
 from lidiff_tpu.tools import map_from_scans as jmap
 from lidiff_tpu_torch import train as ttrain
+from lidiff_tpu_torch import train_refine as ttrain_refine
 from lidiff_tpu_torch.config import finalize_config
 from lidiff_tpu_torch.convert import flax_to_state_dict, load_jax_variables
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
@@ -40,7 +42,8 @@ from lidiff_tpu_torch.tools import eval_path, map_from_scans
 from lidiff_tpu_torch.training.trainer import CheckpointManager
 from lidiff_tpu_torch.utils.ply import read_ply, write_ply
 from tests.helpers import make_kitti_tree
-from tests.torch_parity_helpers import random_variables, ring_scan, to_jax
+from tests.torch_parity_helpers import (one_thread, random_variables,
+                                        ring_scan, to_jax)
 
 NUM_POINTS, UP = 640, 2
 CAPS = [NUM_POINTS, 512, 384, 256, 256]
@@ -344,3 +347,116 @@ def test_convert_checkpoint_matches_jax(kind, tmp_path):
         str(tmp_path / "exp" / "checkpoints")).restore()
     assert step == 0
     model.load_state_dict(state["model"], strict=True)
+
+
+class _Built(Exception):
+    """Raised once an entry point has built its task or pipeline."""
+
+
+def _stop_when_built(monkeypatch, module, name: str, built: list) -> None:
+    """Replace `module.name` by a subclass that records the built object in
+    `built` and stops the entry point there."""
+    cls = getattr(module, name)
+
+    class Stop(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+            raise _Built
+
+    monkeypatch.setattr(module, name, Stop)
+
+
+def _with_dtype(exps: dict, root, dtype: str) -> dict:
+    """Copies of the experiments whose hparams say `tpu.compute_dtype:
+    dtype`."""
+    out = {}
+    for name, src in exps.items():
+        out[name] = str(root / name)
+        shutil.copytree(src, out[name])
+        path = os.path.join(out[name], "checkpoints", "hparams.json")
+        with open(path) as f:
+            hp = json.load(f)
+        hp["tpu"]["compute_dtype"] = dtype
+        with open(path, "w") as f:
+            json.dump(hp, f)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["train", "train_refine", "pipeline",
+                                   "eval_path"])
+@pytest.mark.parametrize("env, in_config, want", [
+    ("bf16", "float32", torch.bfloat16), (None, "bfloat16", torch.float32)],
+    ids=["variable-bf16", "config-bf16"])
+def test_entry_points_take_the_compute_dtype_from_env(
+        entry, env, in_config, want, checkpoints, tmp_path, monkeypatch,
+        one_thread):
+    """Every entry point computes in the dtype LIDIFF_COMPUTE_DTYPE names,
+    as the JAX package does (lidiff_tpu/ops/sparse_conv.py:35-37), whatever
+    the config's (or the checkpoint's) `tpu.compute_dtype` says: the
+    shipped float32 config with the variable set to bf16 gives bfloat16,
+    and a config saying bfloat16 without the variable float32. The entry
+    point stops once its task is built."""
+    if env is None:
+        monkeypatch.delenv("LIDIFF_COMPUTE_DTYPE", raising=False)
+    else:
+        monkeypatch.setenv("LIDIFF_COMPUTE_DTYPE", env)
+    built = []
+    if entry in ("train", "train_refine"):
+        module, task_cls, shipped = {
+            "train": (ttrain, "DiffusionTask", "config.json"),
+            "train_refine": (ttrain_refine, "RefineTask",
+                             "config_refine.json")}[entry]
+        with open(os.path.join(os.path.dirname(ttrain.__file__), "config",
+                               shipped)) as f:
+            cfg = json.load(f)
+        assert cfg["tpu"]["compute_dtype"] == "float32"
+        cfg["tpu"]["compute_dtype"] = in_config
+        path = str(tmp_path / "cfg.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        _stop_when_built(monkeypatch, module, task_cls, built)
+        with pytest.raises(_Built):
+            module.main(["-c", path, "--device", "cpu"])
+        assert built[0].compute_dtype is want
+        return
+    exps = _with_dtype(checkpoints[0], tmp_path, in_config)
+    module = tpipe if entry == "pipeline" else eval_path
+    _stop_when_built(monkeypatch, module, "DiffCompletion", built)
+    argv = (["-d", exps["diff_net"], "-r", exps["refine_net"], "-T", "2",
+             "-p", checkpoints[1], "-o", str(tmp_path / "out")]
+            if entry == "pipeline" else
+            ["-d", exps["diff_net"], "-r", exps["refine_net"], "-t", "2",
+             "--data", checkpoints[2]])
+    with pytest.raises(_Built):
+        module.main(argv + ["--device", "cpu"])
+    dc = built[0]
+    assert dc.task.compute_dtype is want
+    assert dc.refine_task.compute_dtype is want
+
+
+def test_sample_chunk_from_env(checkpoints, monkeypatch, one_thread):
+    """`complete_scan` samples through `sample_chunked` with the chunk that
+    LIDIFF_SAMPLE_CHUNK names (default 10, as in lidiff_tpu's pipeline):
+    chunks of 1 give the same clouds as the default's one chunk of 10 (2
+    steps and 8 past the end)."""
+    exps, scans, _, _ = checkpoints
+    scan = tpipe.load_pcd(os.path.join(scans, "000000.bin"))
+    out, chunks = {}, {}
+    for env in ("1", None):
+        if env is None:
+            monkeypatch.delenv("LIDIFF_SAMPLE_CHUNK", raising=False)
+        else:
+            monkeypatch.setenv("LIDIFF_SAMPLE_CHUNK", env)
+        dc = tpipe.DiffCompletion(exps["diff_net"], exps["refine_net"], 2,
+                                  6.0, device="cpu")
+
+        def spy(*args, _env=env, _fn=dc.task.sample_chunked, **kwargs):
+            chunks[_env] = kwargs["chunk"]
+            return _fn(*args, **kwargs)
+        dc.task.sample_chunked = spy
+        out[env] = dc.complete_scan(scan)
+    assert chunks == {"1": 1, None: 10}
+    for got, want in zip(out["1"], out[None]):
+        np.testing.assert_array_equal(got, want)
+    assert len(out[None][1]) > 0

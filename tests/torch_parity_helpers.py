@@ -1,8 +1,9 @@
 """Shared inputs for the parity tests of the PyTorch port against the JAX
 package (tests/test_torch_*.py): seeded numpy scans, a tiny config, a
 seeded random JAX variables tree for the weight bridge, the small conv
-pyramid of tests/test_pallas_conv.py, and a context that turns on the JAX
-package's int8 eval conv."""
+pyramid of tests/test_pallas_conv.py, a context that turns on the JAX
+package's int8 eval conv, and a fixture that runs a test's torch ops on one
+intra-op thread."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 B, NP, TILE = 2, 64, 8           # batch, partial points, x_init = part x 8
 NF = NP * TILE
@@ -96,3 +99,14 @@ def jax_conv_quant():
         yield
     finally:
         jsc.set_conv_quant(False)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: a tiny model's thread-pool
+    hand-offs cost far more than its work when the test workers share the
+    cores (tests/test_torch_kernel_map.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
