@@ -2809,7 +2809,12 @@ def profile_step(step, label: str) -> None:
             _, wall_s = prof.block_and_time(step)
     launched = a1.launches - before
     wall_us = wall_s * 1e6
-    by_name = prof.device_time_by_kernel(p)
+    by_name: dict[str, float] = {}
+    for e in p.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.is_user_annotation:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not by_name:
         log("profile: the profiler saw no device events")

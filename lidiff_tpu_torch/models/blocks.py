@@ -20,6 +20,7 @@ in the first forward only.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import math
 
@@ -31,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from lidiff_tpu_torch.ops.grid import DownMap, LevelGeom
 from lidiff_tpu_torch.ops.sparse_conv import (masked_moments, sparse_conv,
                                               sparse_conv_transpose)
+from lidiff_tpu_torch.utils import prof
 
 
 def he_uniform_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
@@ -86,15 +88,19 @@ def remat(stage: nn.Module, *args):
     again to get the tensors its gradient needs. The recompute leaves the
     BatchNorm running statistics as the first forward left them, as JAX
     keeps the first forward's `batch_stats`. Nothing in a stage draws
-    random numbers, so no RNG state is stashed."""
+    random numbers, so no RNG state is stashed. In a trace the recompute
+    is the span `lidiff.model.recompute`."""
     calls = 0
 
     def run(*a):
         nonlocal calls
         token = _RECOMPUTING.set(calls > 0)
+        span = prof.annotate("lidiff.model.recompute") if calls > 0 \
+            else contextlib.nullcontext()
         calls += 1
         try:
-            return stage(*a)
+            with span:
+                return stage(*a)
         finally:
             _RECOMPUTING.reset(token)
 

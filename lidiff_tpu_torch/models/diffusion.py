@@ -31,6 +31,7 @@ from lidiff_tpu_torch.diffusion.dpm_solver import (DPMSolver, init_state,
 from lidiff_tpu_torch.models.blocks import init_weights, set_bn_group
 from lidiff_tpu_torch.models.minkunet import MinkGlobalEnc, MinkUNetDiff
 from lidiff_tpu_torch.ops.grid import Pyramid, build_pyramid
+from lidiff_tpu_torch.utils import prof
 
 
 class DiffusionModel(nn.Module):
@@ -222,9 +223,12 @@ class DiffusionTask:
         the cond and uncond streams over one pyramid, as one fused G=2
         forward, or as two G=1 forwards when `fuse_classfree` is off."""
         w = self.w_uncond if w_uncond is None else w_uncond
-        pyr = self.pyramid_full(points)
+        # tvec before the pyramid: a trace credits each kernel on the card
+        # to the innermost open span alone, so a span around this call
+        # covers the pyramid's kernels only if one of its own comes first
         tvec = torch.full((points.shape[0],), t, dtype=torch.int32,
                           device=points.device)
+        pyr = self.pyramid_full(points)
         if self.fuse_classfree:
             eps = self.model.denoise(
                 pyr, [(feats_c, geom_c), (feats_u, geom_u)], tvec)
@@ -281,10 +285,14 @@ class DiffusionTask:
                         randn(ctx)
                     continue
                 t = int(solver.timesteps[i])
-                eps = self.denoise_pair(ctx["x_init"] + state.sample,
-                                        *ctx["banks"], t, w)
-                z = randn(ctx) if noise is None else noise[i]
-                state = solver_step(solver, state, eps, z)
+                with prof.annotate("lidiff.sample.step", f"i={i} t={t}"):
+                    with prof.annotate("lidiff.sample.denoise"):
+                        eps = self.denoise_pair(
+                            ctx["x_init"] + state.sample, *ctx["banks"], t,
+                            w)
+                    z = randn(ctx) if noise is None else noise[i]
+                    with prof.annotate("lidiff.sample.solver"):
+                        state = solver_step(solver, state, eps, z)
             return {**ctx, "state": state}
 
         def finish(ctx):

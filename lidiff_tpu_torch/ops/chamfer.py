@@ -33,6 +33,7 @@ import torch
 
 from lidiff_tpu_torch.ops import keys as K
 from lidiff_tpu_torch.ops.knn import nn_match_tiled
+from lidiff_tpu_torch.utils import prof
 
 _BIG = 1e30
 _FAR = 1e15               # coordinates of a masked-out target
@@ -157,51 +158,52 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor,
     pytorch3d semantics. `method`: "exact" | "grid" | "auto" (None reads
     LIDIFF_CHAMFER, default "auto"). `grid_res`: the grid path's step; None
     reads LIDIFF_CHAMFER_RES and, without it, takes the adaptive step."""
-    if method is None:
-        method = os.environ.get("LIDIFF_CHAMFER", "auto")
-    if method == "auto":
-        method = ("grid" if x.shape[1] * y.shape[1] >= _AUTO_GRID_PAIRS
-                  else "exact")
-    if method not in ("grid", "exact"):
-        raise ValueError(f"chamfer_distance: unknown method {method!r}")
-    B, N = x.shape[:2]
-    M = y.shape[1]
-    xf, yf = x.reshape(B * N, 3), y.reshape(B * M, 3)
-    mx = None if x_mask is None else x_mask.reshape(B * N)
-    my = None if y_mask is None else y_mask.reshape(B * M)
-    if method == "grid":
-        if grid_res is None and os.environ.get("LIDIFF_CHAMFER_RES"):
-            grid_res = float(os.environ["LIDIFF_CHAMFER_RES"])
-        if grid_res is None:
-            # one step for both directions: the two matches must quantize
-            # alike, or the symmetric loss would mix two grids
-            with torch.no_grad():
-                grid_res = _adaptive_res([(xf, mx), (yf, my)])
-        ix = nn_indices_grid(xf, yf, my, mx, grid_res, n_batch=B)
-        iy = nn_indices_grid(yf, xf, mx, my, grid_res, n_batch=B)
-    else:
-        # one item at a time, indices shifted into the flattened arrays
-        ix = torch.cat([b * M + nn_indices(
-            x[b], y[b], None if y_mask is None else y_mask[b])
-            for b in range(B)])
-        iy = torch.cat([b * N + nn_indices(
-            y[b], x[b], None if x_mask is None else x_mask[b])
-            for b in range(B)])
-    # index_select and not points[idx]: its backward adds the rows with
-    # atomics, the indexed form's sorts them first (0.44 against 0.58 ms
-    # forward + backward for 1.08M rows out of 360k on an H100, 0.41
-    # against 0.73 ms the other way round; chip_smoke.py times both)
-    d_xy = ((xf - yf.index_select(0, ix)) ** 2).sum(-1).reshape(B, N)
-    d_yx = ((yf - xf.index_select(0, iy)) ** 2).sum(-1).reshape(B, M)
-    if x_mask is not None:
-        d_xy = torch.where(x_mask, d_xy, 0.0)
-        nx = x_mask.sum(dim=1).clamp(min=1)
-    else:
-        nx = N
-    if y_mask is not None:
-        d_yx = torch.where(y_mask, d_yx, 0.0)
-        ny = y_mask.sum(dim=1).clamp(min=1)
-    else:
-        ny = M
-    return (d_xy.sum(dim=1) / nx + d_yx.sum(dim=1) / ny).mean()
+    with prof.annotate("lidiff.train.chamfer"):
+        if method is None:
+            method = os.environ.get("LIDIFF_CHAMFER", "auto")
+        if method == "auto":
+            method = ("grid" if x.shape[1] * y.shape[1] >= _AUTO_GRID_PAIRS
+                      else "exact")
+        if method not in ("grid", "exact"):
+            raise ValueError(f"chamfer_distance: unknown method {method!r}")
+        B, N = x.shape[:2]
+        M = y.shape[1]
+        xf, yf = x.reshape(B * N, 3), y.reshape(B * M, 3)
+        mx = None if x_mask is None else x_mask.reshape(B * N)
+        my = None if y_mask is None else y_mask.reshape(B * M)
+        if method == "grid":
+            if grid_res is None and os.environ.get("LIDIFF_CHAMFER_RES"):
+                grid_res = float(os.environ["LIDIFF_CHAMFER_RES"])
+            if grid_res is None:
+                # one step for both directions: the two matches must quantize
+                # alike, or the symmetric loss would mix two grids
+                with torch.no_grad():
+                    grid_res = _adaptive_res([(xf, mx), (yf, my)])
+            ix = nn_indices_grid(xf, yf, my, mx, grid_res, n_batch=B)
+            iy = nn_indices_grid(yf, xf, mx, my, grid_res, n_batch=B)
+        else:
+            # one item at a time, indices shifted into the flattened arrays
+            ix = torch.cat([b * M + nn_indices(
+                x[b], y[b], None if y_mask is None else y_mask[b])
+                for b in range(B)])
+            iy = torch.cat([b * N + nn_indices(
+                y[b], x[b], None if x_mask is None else x_mask[b])
+                for b in range(B)])
+        # index_select and not points[idx]: its backward adds the rows with
+        # atomics, the indexed form's sorts them first (0.44 against 0.58 ms
+        # forward + backward for 1.08M rows out of 360k on an H100, 0.41
+        # against 0.73 ms the other way round; chip_smoke.py times both)
+        d_xy = ((xf - yf.index_select(0, ix)) ** 2).sum(-1).reshape(B, N)
+        d_yx = ((yf - xf.index_select(0, iy)) ** 2).sum(-1).reshape(B, M)
+        if x_mask is not None:
+            d_xy = torch.where(x_mask, d_xy, 0.0)
+            nx = x_mask.sum(dim=1).clamp(min=1)
+        else:
+            nx = N
+        if y_mask is not None:
+            d_yx = torch.where(y_mask, d_yx, 0.0)
+            ny = y_mask.sum(dim=1).clamp(min=1)
+        else:
+            ny = M
+        return (d_xy.sum(dim=1) / nx + d_yx.sum(dim=1) / ny).mean()
 

@@ -33,6 +33,7 @@ import torch
 from lidiff_tpu_torch.ops import keys as K
 from lidiff_tpu_torch.ops import native
 from lidiff_tpu_torch.ops.knn import NNIndex, build_nn_index
+from lidiff_tpu_torch.utils import prof
 
 
 @dataclass
@@ -158,7 +159,8 @@ class ColumnKernelMap:
         over the map shares it: a sort of the plan key B1 wrote beside the
         map."""
         if self._plan is None:
-            self._plan = plan_from_keys(self.plan_key)
+            with prof.annotate("lidiff.geom.pyramid"):
+                self._plan = plan_from_keys(self.plan_key)
         return self._plan
 
     @property
@@ -275,8 +277,10 @@ def slice_to_points(vox_feats: torch.Tensor, point2voxel: torch.Tensor):
     V = vox_feats.shape[0]
     idx = point2voxel.clamp(max=V - 1).long()
     ok = (point2voxel < V)[..., None]
-    return torch.where(ok, vox_feats[idx], torch.zeros((), dtype=vox_feats.dtype,
-                                                       device=vox_feats.device))
+    rows = prof.annotate_backward(vox_feats[idx],
+                                  "lidiff.grad.slice_to_points")
+    return torch.where(ok, rows, torch.zeros((), dtype=vox_feats.dtype,
+                                             device=vox_feats.device))
 
 
 def pool_geom(geom: VoxelGeom, out_capacity: int):
@@ -446,16 +450,18 @@ def build_pyramid(points: torch.Tensor, resolution: float,
     """Quantize points and assemble `num_levels` levels (stride 1, 2, ...,
     2^(num_levels-1)) with their kernel maps."""
     assert len(capacities) >= num_levels
-    geom0, vox_feats, p2v = quantize(points, resolution, capacities[0], feats)
-    geoms, c2ps = [geom0], []
-    for li in range(1, num_levels):
-        g, c2p = pool_geom(geoms[-1], capacities[li])
-        geoms.append(g)
-        c2ps.append(c2p)
-    levels = []
-    for li, g in enumerate(geoms):
-        parent_idx, up_tap = (up_maps(g, c2ps[li]) if li + 1 < num_levels
-                              else (None, None))
-        levels.append(LevelGeom(geom=g, kmap3=build_kmap3_columns(g),
-                                parent_idx=parent_idx, up_tap=up_tap))
+    with prof.annotate("lidiff.geom.pyramid"):
+        geom0, vox_feats, p2v = quantize(points, resolution, capacities[0],
+                                         feats)
+        geoms, c2ps = [geom0], []
+        for li in range(1, num_levels):
+            g, c2p = pool_geom(geoms[-1], capacities[li])
+            geoms.append(g)
+            c2ps.append(c2p)
+        levels = []
+        for li, g in enumerate(geoms):
+            parent_idx, up_tap = (up_maps(g, c2ps[li])
+                                  if li + 1 < num_levels else (None, None))
+            levels.append(LevelGeom(geom=g, kmap3=build_kmap3_columns(g),
+                                    parent_idx=parent_idx, up_tap=up_tap))
     return Pyramid(levels=tuple(levels), point2voxel=p2v, vox_feats=vox_feats)

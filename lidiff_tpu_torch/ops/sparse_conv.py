@@ -50,6 +50,7 @@ import torch
 from lidiff_tpu_torch.ops import native
 from lidiff_tpu_torch.ops.grid import (TILE_ROWS, ColumnKernelMap, DownMap,
                                        KernelMap, TilePlan, tile_plan)
+from lidiff_tpu_torch.utils import prof
 
 # Kernel A1 takes these (input, output) dtype pairs; the codes match
 # csrc/conv3_columns.cu.
@@ -727,7 +728,8 @@ def sparse_conv_transpose(coarse_feats, parent_idx, tap, weights, fine_mask,
     w_all = weights.to(compute_dtype).permute(1, 0, 2).reshape(Cin, Kt * Cout)
     y = torch.matmul(cf, w_all).to(out_dtype).reshape(Vc, G, Kt, Cout)
     pidx = parent_idx.long().clamp(max=Vc - 1)
-    o = y[pidx, :, tap.long()]                        # [V_f, G, Cout]
+    o = prof.annotate_backward(y[pidx, :, tap.long()],  # [V_f, G, Cout]
+                               "lidiff.grad.transpose_gather")
     ok = (parent_idx < Vc) & fine_mask
     o = torch.where(ok[:, None, None], o, 0.0).reshape(-1, G * Cout)
     return torch.where(fine_mask[:, None], o, 0.0)

@@ -44,7 +44,7 @@ from lidiff_tpu_torch.models.refine import RefineTask
 from lidiff_tpu_torch.ops.fps import fps, fps_cuda
 from lidiff_tpu_torch.parallel import mesh
 from lidiff_tpu_torch.training.trainer import CheckpointManager
-from lidiff_tpu_torch.utils import ply
+from lidiff_tpu_torch.utils import ply, prof
 from lidiff_tpu_torch.utils.natsort import natsorted
 
 
@@ -165,20 +165,25 @@ class DiffCompletion:
     def complete_scan(self, scan: np.ndarray):
         """Returns (refined [M * up_factor, 3], diff [M, 3]) and records
         the host seconds of each stage in `times`; the device stages end in
-        a copy to the host, so their times include the device's work."""
+        a copy to the host, so their times include the device's work. In a
+        trace each stage is the span `lidiff.pipeline.<stage>`."""
         t0 = time.perf_counter()
-        x_init = self.preprocess_scan(scan)
-        part = np.ascontiguousarray(x_init[:, :self.n_part])
-        self._check_overflow(x_init)
+        with prof.annotate("lidiff.pipeline.preprocess"):
+            x_init = self.preprocess_scan(scan)
+            part = np.ascontiguousarray(x_init[:, :self.n_part])
+            self._check_overflow(x_init)
         t1 = time.perf_counter()
-        completed = self.task.sample_chunked(
-            torch.from_numpy(x_init).to(self.device),
-            torch.from_numpy(part).to(self.device),
-            self.generator, chunk=self._chunk).cpu().numpy()[0]
+        with prof.annotate("lidiff.pipeline.sample"):
+            completed = self.task.sample_chunked(
+                torch.from_numpy(x_init).to(self.device),
+                torch.from_numpy(part).to(self.device),
+                self.generator, chunk=self._chunk).cpu().numpy()[0]
         t2 = time.perf_counter()
-        post = self.postprocess_scan(completed, x_init)
+        with prof.annotate("lidiff.pipeline.postprocess"):
+            post = self.postprocess_scan(completed, x_init)
         t3 = time.perf_counter()
-        refined = post if self.refine_task is None else self.refine(post)
+        with prof.annotate("lidiff.pipeline.refine"):
+            refined = post if self.refine_task is None else self.refine(post)
         t4 = time.perf_counter()
         self.times = {"preprocess": t1 - t0, "sample": t2 - t1,
                       "postprocess": t3 - t2, "refine": t4 - t3}

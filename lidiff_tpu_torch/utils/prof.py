@@ -1,12 +1,14 @@
 """Timing and profiling hooks (counterpart of lidiff_tpu/utils/prof.py).
 
-`StepTimer` keeps a step's wall time and an exponential moving average of
-steps a second; `trace(log_dir)` captures a torch.profiler trace of the
-enclosed region (host and, where a card is present, device activity) and
-writes it as a Chrome trace; `annotate(name)` names a sub-region of an
-active trace; `block_and_time` runs a function and waits for the card
-before it stops the clock. `device_time_by_kernel` sums a finished
-profile's device time by kernel name.
+`trace(log_dir)` captures a torch.profiler trace of the enclosed region
+(host and, where a card is present, device activity) and writes it as a
+Chrome trace. `annotate(name)` is the program's one span call: inside a
+trace it records a named range on the profiler's clock, which also gets a
+device-side extent over the kernels launched inside it; outside a trace it
+costs one check and records nothing. `annotate_backward(t, name)` names the
+backward of the autograd node that made `t` the same way.
+`block_and_time` runs a function and waits for the card before it stops
+the clock.
 """
 
 from __future__ import annotations
@@ -17,25 +19,7 @@ import time
 
 import torch
 
-
-class StepTimer:
-    """Tracks step wall time and an exponential moving average of
-    steps/sec."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.rate = None
-        self._t = None
-
-    def tic(self):
-        self._t = time.perf_counter()
-
-    def toc(self, steps: int = 1) -> float:
-        dt = time.perf_counter() - self._t
-        r = steps / max(dt, 1e-9)
-        self.rate = r if self.rate is None else (
-            self.ema * self.rate + (1 - self.ema) * r)
-        return dt
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -61,11 +45,38 @@ def trace(log_dir: str | None = None):
             os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named sub-region inside an active trace."""
-    with torch.profiler.record_function(name):
-        yield
+def annotate(name: str, args: str | None = None):
+    """A span `name` (with the string `args` beside it) over the enclosed
+    region while the profiler records; otherwise one shared no-op
+    context, which allocates and registers nothing."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name, args)
+
+
+def annotate_backward(t: torch.Tensor, name: str) -> torch.Tensor:
+    """Return `t`; while the profiler records, the backward of the node
+    that made `t` runs inside a span `name`. A pre-hook enters the span
+    and a post-hook leaves it, both on the thread that runs the node
+    (autograd's own for a card), so the span's device extent holds that
+    node's kernels."""
+    node = t.grad_fn
+    if node is None or not torch._C._autograd._profiler_enabled():
+        return t
+    entered = []
+
+    def enter(grad_outputs):
+        entered.append(torch.ops.profiler._record_function_enter_new(
+            name, None))
+
+    def leave(grad_inputs, grad_outputs):
+        if entered:
+            torch.ops.profiler._record_function_exit._RecordFunction(
+                entered.pop())
+
+    node.register_prehook(enter)
+    node.register_hook(leave)
+    return t
 
 
 def block_and_time(fn, *args, **kwargs):
@@ -88,16 +99,3 @@ def _tensors(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _tensors(v)
-
-
-def device_time_by_kernel(prof) -> dict[str, float]:
-    """Device microseconds by kernel name over a finished profile. The
-    device-side spans of `annotate` regions are not kernels and are left
-    out (they would count their kernels' time twice)."""
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                not getattr(e, "is_user_annotation", False):
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-    return by_name
