@@ -99,6 +99,14 @@ the kernels are built for sm_90a):
      float32 and bf16, the 8-tap gather down conv against
      `sparse_conv_down`, and times the bf16 gather beside A1 (phase 2 runs
      it, after the backward kernels).
+ 17. holds TG, the transpose conv's parent-row gather on the card
+     (`csrc/transpose_gather.cu`, forward and backward through autograd),
+     against its plain version bit for bit at the refiner's four up-stage
+     shapes at batch 8, and times it beside the plain version, its bound
+     by bytes and the plain backward's `indexing_backward_kernel` (phase 2
+     runs it, after the backward kernels); phases 3, 6, 9, 10 and 11 count
+     its launches: one forward for each transpose conv of a forward pass
+     (once more with remat), one backward for each in a backward pass.
 It prints one line per phase, then a {"kernels": [...]} JSON line, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
@@ -150,6 +158,15 @@ A3_TIMED = (384, 256, 3, 1)  # (C, Co, level, G): the kernels line's A2, A3
 GATHER_WIDTHS = [(384, 256, 3), (96, 96, 0)]
 GATHER_DOWN = (32, 32)      # the first down conv (DownStage_0, cs[0] -> cs[0])
 BF16_U = 2.0 ** -8          # bf16 unit roundoff
+# TG (the transpose conv's parent-row gather) at the refiner's four up
+# stages at batch 8: capacities 8 x the one-item table, valid voxels as
+# many as the benchmark's aggregated windows reach at most. (stage, Vc,
+# valid coarse rows, V_fine, valid fine rows, Cout); G = 1, y in bf16, the
+# activations float32
+TG_STAGES = (("UpStage_0", 576_512, 89_431, 1_152_000, 305_562, 256),
+             ("UpStage_1", 1_152_000, 305_562, 1_440_768, 833_661, 128),
+             ("UpStage_2", 1_440_768, 833_661, 1_440_768, 1_313_116, 96),
+             ("UpStage_3", 1_440_768, 1_313_116, 1_440_768, 1_422_246, 96))
 # small float32 training step, card against CPU: sums in other orders over
 # about 100 layers forward and backward, and BatchNorm over a few hundred
 # voxels on the coarse levels divides by small variances
@@ -235,7 +252,9 @@ def kernel_table() -> dict:
             "C1": knn._nn_kernel,
             "C1 scan": Count(knn._nn_kernel, "scans"),
             "C1 index": Count(knn.NNIndex, "builds"),
-            "C2": knn._tile_kernel, "F1": fps._fps_kernel}
+            "C2": knn._tile_kernel, "F1": fps._fps_kernel,
+            "TG": sparse_conv._gather_fwd_kernel,
+            "TG bwd": sparse_conv._scatter_bwd_kernel}
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -766,6 +785,105 @@ def check_backward(pyr, sc, dev):
     return res
 
 
+def _kernel_ms(fn, key: str) -> float:
+    """Device ms of the kernels whose names hold `key` in one call of fn(),
+    by torch.profiler, after a warm-up call."""
+    import torch
+    from lidiff_tpu_torch.utils import prof
+    fn()
+    torch.cuda.synchronize()
+    with prof.trace() as p:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and key in e.name) / 1e3
+
+
+def check_transpose_gather(dev):
+    """TG, the transpose conv's parent-row gather (`sparse_conv.
+    transpose_gather` on a CUDA tensor: `TransposeGatherFunction`), at
+    TG_STAGES, on maps made as `grid.up_maps` makes them (each valid fine
+    row its own (parent, tap) slot among the valid parents, in key order;
+    the padding rows parent_idx == Vc, tap 0): the output and, through
+    autograd, the bf16 gradient of y against `transpose_gather_plain` on
+    the same tensors bit for bit. Times both ways beside the plain
+    version, the bound by bytes (the forward: the ok rows of y, the output
+    and the maps; the backward: dy, the ok rows' cotangents and the maps)
+    and the plain backward's `indexing_backward_kernel`. Returns the
+    kernels line's "TG" and "TG bwd", summed over the four stages."""
+    import torch
+    from lidiff_tpu_torch.ops import sparse_conv as sc
+    gen = torch.Generator(device=dev).manual_seed(15)
+    f32 = torch.float32
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    fwd, bwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    for stage, Vc, nc, Vf, nf, cout in TG_STAGES:
+        slots = torch.randperm(nc * 8, generator=gen, device=dev)[:nf]
+        slots = slots.sort().values.to(torch.int32)
+        parent = torch.full((Vf,), Vc, dtype=torch.int32, device=dev)
+        tap = torch.zeros_like(parent)
+        parent[:nf], tap[:nf] = slots // 8, slots % 8
+        ok = torch.zeros(Vf, dtype=torch.bool, device=dev)
+        ok[:nf] = True
+        del slots
+        y = torch.randn(Vc, 1, 8, cout, generator=gen, device=dev,
+                        dtype=torch.bfloat16).requires_grad_()
+        g = torch.randn(Vf, cout, generator=gen, device=dev)
+        args = (parent, tap, ok, f32)
+        out = sc.transpose_gather(y, *args)
+        ref = sc.transpose_gather_plain(y, *args)
+        dy, = torch.autograd.grad(out, y, g, retain_graph=True)
+        dy_ref, = torch.autograd.grad(ref, y, g, retain_graph=True)
+        if not (out.dtype == ref.dtype == f32
+                and torch.equal(out.view(torch.int32), ref.view(torch.int32))
+                and dy.dtype == dy_ref.dtype == torch.bfloat16
+                and torch.equal(dy.view(torch.int16),
+                                dy_ref.view(torch.int16))):
+            raise AssertionError(f"TG {stage}: output or dy differs from "
+                                 f"transpose_gather_plain")
+        del dy, dy_ref
+        yd = y.detach()
+        maps = Vf * 9
+        times = {
+            "fwd": _time_ms(lambda: sc.transpose_gather(yd, *args), 5),
+            "bwd": _time_ms(lambda: torch.autograd.grad(
+                out, y, g, retain_graph=True), 5),
+            "plain_fwd": _time_ms(
+                lambda: sc.transpose_gather_plain(yd, *args), 3),
+            "plain_bwd": _time_ms(lambda: torch.autograd.grad(
+                ref, y, g, retain_graph=True), 2),
+            "index_bwd": _kernel_ms(lambda: torch.autograd.grad(
+                ref, y, g, retain_graph=True), "indexing_backward_kernel")}
+        fwd_b, _ = _bound_ms(0, PEAK_F32, nf * cout * 2 + Vf * cout * 4
+                             + maps)
+        bwd_b, _ = _bound_ms(0, PEAK_F32, Vc * 8 * cout * 2
+                             + nf * cout * 4 + maps)
+        for d, ms, plain, bound, lib in (
+                (fwd, times["fwd"], times["plain_fwd"], fwd_b, 0.0),
+                (bwd, times["bwd"], times["plain_bwd"], bwd_b,
+                 times["index_bwd"])):
+            for k, v in zip(keys, (ms, plain, bound, lib)):
+                d[k] += v
+        log(f"TG {stage} Vc={Vc} V_fine={Vf} ok rows {nf} Cout={cout}: "
+            f"output and dy = plain bit for bit; forward {times['fwd']:.4f} "
+            f"ms (bound {fwd_b:.4f}, plain {times['plain_fwd']:.4f}), "
+            f"backward {times['bwd']:.4f} ms (bound {bwd_b:.4f}, plain "
+            f"{times['plain_bwd']:.4f}, of it indexing_backward_kernel "
+            f"{times['index_bwd']:.4f})")
+        del out, ref, y, yd, g, parent, tap, ok
+        torch.cuda.empty_cache()
+    fwd["library_ms"] = None
+    res = {n: dict(max_abs_err=0, **d, bound_by="bytes")
+           for n, d in (("TG", fwd), ("TG bwd", bwd))}
+    log(f"TG over the four up stages: forward {fwd['ms']:.4f} ms (bound "
+        f"{fwd['bound_ms']:.4f}, plain {fwd['plain_ms']:.4f}), backward "
+        f"{bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}, plain "
+        f"{bwd['plain_ms']:.4f}, indexing_backward_kernel "
+        f"{bwd['library_ms']:.4f})")
+    return res
+
+
 def check_gather_form(pyr, dev):
     """The gather-form kernel-map API on the sampling pyramid, with the
     launch counts of its run: (a) `build_kernel_map` at every level against
@@ -987,8 +1105,10 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
         solver=solver)
     launches = {n: k.launches for n, k in kernels.items()}
     # per guided step one match per level and bank, the uncond bank's a
-    # scan; one index per bank and completion
-    want = {"C1": 10 * steps, "C1 scan": 5 * steps, "C1 index": 2}
+    # scan, and TG's forward once per transpose conv; one index per bank
+    # and completion
+    want = {"C1": 10 * steps, "C1 scan": 5 * steps, "C1 index": 2,
+            "TG": up_convs(task.model) * steps, "TG bwd": 0}
     if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
         raise AssertionError(f"completion launches {launches}, expected "
                              f"{want}")
@@ -1008,7 +1128,8 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
     if dev == "cuda":
         want = {"A1": steps + 2,
                 "A4": bf16["launches"]["A1"] - steps - 2,
-                "B1": bf16["launches"]["B1"], "C1": bf16["launches"]["C1"]}
+                "B1": bf16["launches"]["B1"], "C1": bf16["launches"]["C1"],
+                "TG": bf16["launches"]["TG"], "TG bwd": 0}
         for n, c in want.items():
             if launches[n] != c:
                 raise AssertionError(f"int8 completion: kernel {n}: "
@@ -1081,6 +1202,7 @@ def run_unfused_completion(cfg, x_init, part, noisy, solver, out_fused,
                              "SCANS_NN_TOL of the fused one")
     if dev == "cuda":
         want = {"A1": fused["launches"]["A1"] + DENOISER_CONVS * steps,
+                "TG": 2 * fused["launches"]["TG"], "TG bwd": 0,
                 **{n: fused["launches"][n]
                    for n in ("B1", "B1 taps", "C1", "C1 scan", "C1 index")}}
         for n, c in want.items():
@@ -1173,6 +1295,7 @@ def run(steps: int, dev: str = "cuda"):
         check_c2_case(knn, f"sampling, L0 queries x {name} bank", g0.coords,
                       g0.mask, bank.coords, bank.mask, 1)
     res.update(check_backward(pyr, sparse_conv, dev))
+    res.update(check_transpose_gather(dev))
     gather_launches = check_gather_form(pyr, dev)
     res["F1"] = check_f1(dev)
     log(f"kernel checks: {time.time() - t0:.1f} s")
@@ -1388,6 +1511,15 @@ def stage_convs(model) -> int:
                if isinstance(m, SparseConv) and m.kernel.shape[0] == 27)
 
 
+def up_convs(model) -> int:
+    """The transpose convs of the model, one in each UpStage: TG's forward
+    runs once for each in a forward pass (once more with remat, in the
+    backward pass), its backward once for each in a backward pass."""
+    from lidiff_tpu_torch.models.blocks import SparseConvTranspose
+    return sum(1 for m in model.modules()
+               if isinstance(m, SparseConvTranspose))
+
+
 def grad_step(task, batch, draws):
     """One loss and backward pass of a fresh task: (loss, the gradients and
     the BN running statistics on the host)."""
@@ -1508,11 +1640,13 @@ def diffusion_steps(task, cfg, batch, kernels, dev, what: str, remat: bool,
         return f"loss {float(m['loss']):.4f}, overflow {overflow[-1]}"
 
     extra = stage_convs(task.model) if remat else 0
+    ups = up_convs(task.model)
     out = train_steps(
         task, cfg, batch, torch.Generator(device=dev).manual_seed(3),
         kernels, dev, what, "loss",
         {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
-         "A1": 2 * CONVS_PER_STEP - 2 + extra, "C1": 5, "C1 index": 1},
+         "A1": 2 * CONVS_PER_STEP - 2 + extra, "C1": 5, "C1 index": 1,
+         "TG": ups * (2 if remat else 1), "TG bwd": ups},
         describe, draws=draws, profile=profile)
     if any(overflow):
         raise AssertionError(f"{what}: capacity overflow on the input")
@@ -2171,15 +2305,18 @@ def refine_steps(task, rcfg, batch, kernels, dev, what: str, remat: bool,
     """`train_steps` of the refiner, with the launches per step that its
     convs give: every column conv but the first (its input needs no
     gradient) has a feats gradient, and with remat A1 runs once more for
-    each stage conv; one pyramid of 5 levels; one match per direction."""
+    each stage conv and TG's forward for each transpose conv; one pyramid
+    of 5 levels; one match per direction."""
     from lidiff_tpu_torch.models.blocks import SparseConv
     convs = sum(1 for m in task.model.modules()
                 if isinstance(m, SparseConv) and m.kernel.shape[0] == 27)
     extra = stage_convs(task.model) if remat else 0
+    ups = up_convs(task.model)
     return train_steps(
         task, rcfg, batch, None, kernels, dev, what, "cd_loss",
         {"A3": convs, "A2": convs - 1, "A1": 2 * convs - 1 + extra,
-         "B1": 5, "C2": 2, "C1": 0},
+         "B1": 5, "C2": 2, "C1": 0, "TG": ups * (2 if remat else 1),
+         "TG bwd": ups},
         lambda m: f"cd_loss {float(m['cd_loss']):.4f}", instrument,
         profile=profile)
 
@@ -2509,6 +2646,17 @@ def run_pipeline(cfg, kernels, steps: int, dev):
                     refine_counts["A4"] > 0 and refine_counts["B1"] == 5):
                 raise AssertionError("pipeline int8: the refiner did not "
                                      "run A4 and B1")
+            # TG's forward once per transpose conv of each denoiser call
+            # and of the refiner, no backward
+            ups = up_convs(dc.refine_task.model)
+            if dev == "cuda" and not (
+                    refine_counts["TG"] == ups and launches["TG bwd"] == 0
+                    and launches["TG"] == up_convs(dc.task.model) * steps
+                    + ups):
+                raise AssertionError(f"pipeline {what}: TG launches "
+                                     f"{launches['TG']}, {launches['TG bwd']}"
+                                     f" backward, {refine_counts['TG']} in "
+                                     f"refine")
             out[what] = (refined, launches)
             del dc
         # ---- 15. complete_scans over two replicas on the one card ----
@@ -2768,7 +2916,9 @@ def run_eval_clis(dev: str, tree: str, kernels) -> None:
                              "dtype from LIDIFF_COMPUTE_DTYPE")
 
 
-_CATEGORIES = (("A3 conv3_columns_dw", ("conv3_columns_dw",)),
+_CATEGORIES = (("TG transpose_gather", ("transpose_gather_fwd",
+                                         "transpose_scatter_bwd")),
+               ("A3 conv3_columns_dw", ("conv3_columns_dw",)),
                ("A1 conv3_columns", ("conv3_columns",)),
                ("B1 kmap3_columns", ("kmap3_",)),
                ("C2 nn_match_tiled", ("nn_match_tiled",)),
@@ -2909,19 +3059,27 @@ def main(argv=None) -> int:
                "int8 sampling"),
         "F1": ("fps",
                "lidiff_tpu/native/src/lidiff_native.cpp:54 (lidiff_fps, "
-               "host C++)", "pipeline")}
+               "host C++)", "pipeline"),
+        "TG": ("transpose_gather",
+               "none: XLA's gather, lidiff_tpu/ops/sparse_conv.py:377-431",
+               "refiner training"),
+        "TG bwd": ("transpose_gather",
+                   "none: XLA's transpose of that gather",
+                   "refiner training")}
     for path, names in (
-            ("sampling", ("A1", "B1", "B1 taps", "C1")),
-            ("sampling unfused", ("A1", "B1", "B1 taps", "C1")),
-            ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1")),
+            ("sampling", ("A1", "B1", "B1 taps", "C1", "TG")),
+            ("sampling unfused", ("A1", "B1", "B1 taps", "C1", "TG")),
+            ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1", "TG")),
             ("gather form", ("A1", "B1")),
-            ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1")),
+            ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1", "TG",
+                          "TG bwd")),
             (f"training at batch {DIFF_BATCH}",
-             ("A1", "A2", "A3", "B1", "B1 taps", "C1")),
-            ("refiner training", ("A1", "A2", "A3", "B1", "B1 taps", "C2")),
+             ("A1", "A2", "A3", "B1", "B1 taps", "C1", "TG", "TG bwd")),
+            ("refiner training", ("A1", "A2", "A3", "B1", "B1 taps", "C2",
+                                  "TG", "TG bwd")),
             (f"refiner training at batch {REFINE_BATCH}",
-             ("A1", "A2", "A3", "B1", "B1 taps", "C2")),
-            ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1"))):
+             ("A1", "A2", "A3", "B1", "B1 taps", "C2", "TG", "TG bwd")),
+            ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1", "TG"))):
         for n in names:
             if paths[path][n] == 0:
                 raise AssertionError(f"kernel {n} was not launched on the "

@@ -27,7 +27,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("kmap3_columns", "conv3_columns", "conv3_columns_dw",
-           "conv3_columns_q", "nn_match", "nn_match_tiled", "fps")
+           "conv3_columns_q", "nn_match", "nn_match_tiled", "fps",
+           "transpose_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -11,8 +11,11 @@ tensors. Both accumulate all 27 taps in float32 and cast once, as the TPU
 kernel does (lidiff_tpu/ops/pallas_conv.py:800-832). In bf16 the kernel
 runs over the map's tile plan (`grid.tile_plan`): only the taps some row
 of a 64-row tile hits are computed, which changes no result. The down
-and transpose convs are one dense GEMM each plus a gather or scatter, in
-plain PyTorch, and differentiate through autograd.
+conv is one dense GEMM and a scatter in plain PyTorch, differentiated by
+autograd. The transpose conv is one dense GEMM and the parent-row gather
+`transpose_gather`: on CUDA tensors a hand-written kernel each way
+(`csrc/transpose_gather.cu`, through `TransposeGatherFunction`), on CPU
+tensors its plain version.
 
 `sparse_conv` takes any of the three kernel maps: a ColumnKernelMap goes
 to the column conv, a DownMap to the down conv, and a gather-form
@@ -716,23 +719,117 @@ def sparse_conv_down(feats, parent_idx, tap, weights, out_mask, *,
 def sparse_conv_transpose(coarse_feats, parent_idx, tap, weights, fine_mask,
                           *, groups: int = 1, compute_dtype=torch.float32):
     """ks=2 / stride-2 transpose conv: out[v] = coarse[parent(v)] @
-    W[tap(v)], as one GEMM of all 8 taps per coarse voxel and a row gather.
-    G > 1 runs each group through the same GEMM as extra rows, which
-    computes what the JAX package's block-diagonal GEMM does
-    (sparse_conv.py:413-429)."""
+    W[tap(v)], as one GEMM of all 8 taps per coarse voxel and the parent-row
+    gather `transpose_gather`. G > 1 runs each group through the same GEMM
+    as extra rows, which computes what the JAX package's block-diagonal
+    GEMM does (sparse_conv.py:413-429)."""
     Kt, Cin, Cout = weights.shape
     G = groups
     Vc = coarse_feats.shape[0]
-    out_dtype = coarse_feats.dtype
     cf = coarse_feats.to(compute_dtype).reshape(Vc * G, Cin)
     w_all = weights.to(compute_dtype).permute(1, 0, 2).reshape(Cin, Kt * Cout)
-    y = torch.matmul(cf, w_all).to(out_dtype).reshape(Vc, G, Kt, Cout)
-    pidx = parent_idx.long().clamp(max=Vc - 1)
-    o = prof.annotate_backward(y[pidx, :, tap.long()],  # [V_f, G, Cout]
-                               "lidiff.grad.transpose_gather")
+    y = torch.matmul(cf, w_all).reshape(Vc, G, Kt, Cout)
     ok = (parent_idx < Vc) & fine_mask
-    o = torch.where(ok[:, None, None], o, 0.0).reshape(-1, G * Cout)
-    return torch.where(fine_mask[:, None], o, 0.0)
+    return transpose_gather(y, parent_idx, tap, ok, coarse_feats.dtype)
+
+
+# The transpose conv's parent-row gather (`csrc/transpose_gather.cu`)
+_gather_fwd_kernel = native.Kernel(
+    "transpose_gather", "transpose_gather_fwd",
+    [ctypes.c_int, ctypes.c_int,                       # dtype codes y, out
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # y, parent, tap
+     ctypes.c_void_p, ctypes.c_void_p,                   # ok, out
+     ctypes.c_int, ctypes.c_int, ctypes.c_int,           # rows G Cout
+     ctypes.c_void_p])                                   # stream
+
+_scatter_bwd_kernel = native.Kernel(
+    "transpose_gather", "transpose_scatter_bwd",
+    [ctypes.c_int, ctypes.c_int,                       # dtype codes g, dy
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, parent, tap
+     ctypes.c_void_p, ctypes.c_void_p,                   # ok, dy
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows Vc G Co
+     ctypes.c_void_p])                                   # stream
+
+
+def transpose_gather_plain(y, parent_idx, tap, ok, out_dtype):
+    """Plain PyTorch version of `transpose_gather`, differentiated by
+    autograd: y widened to `out_dtype`, the parent rows gathered, the rows
+    that are not `ok` zeroed. Its backward adds each row's cotangent into a
+    zeroed buffer of y's shape in `out_dtype` and casts that to y's
+    dtype."""
+    Vc, G, _, Cout = y.shape
+    pidx = parent_idx.long().clamp(max=Vc - 1)
+    o = prof.annotate_backward(y.to(out_dtype)[pidx, :, tap.long()],
+                               "lidiff.grad.transpose_gather")
+    return torch.where(ok[:, None, None], o, 0.0).reshape(-1, G * Cout)
+
+
+class TransposeGatherFunction(torch.autograd.Function):
+    """The parent-row gather on the card. The forward is
+    `transpose_gather_fwd`: one pass from y in the compute dtype to the
+    output in `out_dtype`. The backward is `transpose_scatter_bwd`: dy in
+    y's dtype, zeros and then each ok row's cotangent in its slot, rounded
+    once. Only the integer maps and the mask are saved.
+
+    Precondition, not checked: the ok rows have pairwise distinct slots
+    parent_idx * 8 + tap, as `grid.up_maps` gives them (a level's valid
+    voxels have distinct coordinates). Under it the output and the
+    gradient equal `transpose_gather_plain`'s bit for bit: there each
+    slot's sum holds its one ok row's cotangent and zeros."""
+
+    @staticmethod
+    def forward(ctx, y, parent_idx, tap, ok, out_dtype):
+        Vf = parent_idx.shape[0]
+        if y.dim() != 4 or y.shape[2] != 8 or parent_idx.dim() != 1 \
+                or tap.shape != (Vf,) or ok.shape != (Vf,):
+            raise ValueError("transpose_gather: shape mismatch")
+        if parent_idx.dtype != torch.int32 or tap.dtype != torch.int32 \
+                or ok.dtype != torch.bool:
+            raise ValueError("transpose_gather: want int32 parent_idx and "
+                             "tap, bool ok")
+        if y.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+            raise ValueError(f"transpose_gather: dtypes {y.dtype} -> "
+                             f"{out_dtype}")
+        native.check_cuda("transpose_gather", y, parent_idx, tap, ok)
+        _, G, _, Cout = y.shape
+        out = torch.empty(Vf, G * Cout, dtype=out_dtype, device=y.device)
+        _gather_fwd_kernel(_DTYPE_CODE[y.dtype], _DTYPE_CODE[out_dtype],
+                           native.ptr(y), native.ptr(parent_idx),
+                           native.ptr(tap), native.ptr(ok), native.ptr(out),
+                           Vf, G, Cout, native.stream(y.device))
+        ctx.save_for_backward(parent_idx, tap, ok)
+        ctx.y_shape, ctx.y_dtype = y.shape, y.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        parent_idx, tap, ok = ctx.saved_tensors
+        Vc, G, _, Cout = ctx.y_shape
+        g = g.contiguous()
+        dy = torch.empty(ctx.y_shape, dtype=ctx.y_dtype, device=g.device)
+        _scatter_bwd_kernel(_DTYPE_CODE[g.dtype], _DTYPE_CODE[ctx.y_dtype],
+                            native.ptr(g), native.ptr(parent_idx),
+                            native.ptr(tap), native.ptr(ok), native.ptr(dy),
+                            parent_idx.shape[0], Vc, G, Cout,
+                            native.stream(g.device))
+        return dy, None, None, None, None
+
+
+def transpose_gather(y, parent_idx, tap, ok, out_dtype):
+    """The transpose conv's parent-row gather: out[v, g] = y[parent_idx[v],
+    g, tap[v]] in `out_dtype` where ok[v], else 0, as [V_f, G * Cout].
+
+    y [Vc, G, 8, Cout] is the GEMM's output in the compute dtype;
+    parent_idx and tap [V_f] int32; ok [V_f] bool, parent_idx < Vc and
+    the fine mask. CUDA tensors go through `TransposeGatherFunction`, CPU
+    tensors through `transpose_gather_plain`. In a trace the backward is
+    the span `lidiff.grad.transpose_gather`."""
+    if y.device.type == "cpu":
+        return transpose_gather_plain(y, parent_idx, tap, ok, out_dtype)
+    if y.device.type != "cuda":
+        raise ValueError(f"transpose_gather: unsupported device {y.device}")
+    out = TransposeGatherFunction.apply(y, parent_idx, tap, ok, out_dtype)
+    return prof.annotate_backward(out, "lidiff.grad.transpose_gather")
 
 
 def masked_moments(feats, mask, group=None):

@@ -16,7 +16,10 @@ within one bf16 ulp plus 1e-4 of max|ref|. The bf16 down and transpose
 convs (plain PyTorch on both sides, atomic scatter order on the card)
 are held to the bound stated in `sparse_conv_down`: n * 2^-7 * A per
 parent of n children, A the sum of |feat| * |weight| over its children
-and channels.
+and channels. The transpose conv through its gather kernels
+(`TransposeGatherFunction`) is held to the same conv through the plain
+gather on the same CUDA tensors bit for bit: output, coarse-feats and
+weight gradients.
 
 A3 (the weight gradient) is held to its plain version on the same bf16 or
 float32 operands within 1e-4 of max|ref| in float32 and 5e-4 in bf16: both
@@ -517,6 +520,77 @@ def test_sparse_conv_transpose_bf16(dev, dtype, cin, cout, G):
     a = _abs_products(c[pidx], w, fine.up_tap, G).reshape(-1, G * cout).cpu()
     err = (got - ref).abs().double()
     assert bool((err <= BF16_ULP * a + 1e-6 * float(a.max())).all())
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+# (activations' dtype, G, Cin, Cout): training (float32 activations) and
+# eval (bf16 in and out, the guided pair); Cout 96, 32 take 8 channels a
+# thread, 20 four, 6 two, 5 one
+@pytest.mark.parametrize("act,G,cin,cout", [
+    (torch.float32, 1, 32, 96), (torch.float32, 1, 16, 20),
+    (torch.bfloat16, 2, 64, 32), (torch.bfloat16, 2, 24, 6),
+    (torch.bfloat16, 2, 8, 5)])
+def test_transpose_gather_function(dev, monkeypatch, act, G, cin, cout):
+    """The transpose conv through `TransposeGatherFunction` against the
+    same conv through the plain gather on the same CUDA tensors, bf16
+    compute: output, coarse-feats gradient and weight gradient bit for bit
+    (the kernels change no arithmetic: the GEMMs are the same calls). The
+    fine level holds padding rows and the coarse level overflowed, so rows
+    with parent_idx == Vc occur; their cotangents are NaN and must not
+    reach a gradient. One forward and one backward launch a call."""
+    pyr = _pyramid(dev, 700, [2048, 1024, 512])
+    fine, coarse = pyr.levels[0], pyr.levels[1].geom
+    Vc = coarse.capacity
+    assert int(coarse.num_raw) > Vc and bool((~fine.geom.mask).any())
+    assert bool((fine.geom.mask & (fine.parent_idx == Vc)).any())
+    gen = torch.Generator(device=dev).manual_seed(cin + cout)
+    c = torch.randn(Vc, G * cin, generator=gen, device=dev)
+    c = (c * coarse.mask[:, None]).to(act)
+    w = torch.randn(8, cin, cout, generator=gen, device=dev) / math.sqrt(cin)
+    g = torch.randn(fine.geom.capacity, G * cout, generator=gen, device=dev)
+    ok = (fine.parent_idx < Vc) & fine.geom.mask
+    g = torch.where(ok[:, None], g, float("nan")).to(act)
+
+    def conv():
+        a, b = c.clone().requires_grad_(), w.clone().requires_grad_()
+        out = sparse_conv.sparse_conv_transpose(
+            a, fine.parent_idx, fine.up_tap, b, fine.geom.mask, groups=G,
+            compute_dtype=torch.bfloat16)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return out, a.grad, b.grad
+
+    fwd, bwd = sparse_conv._gather_fwd_kernel, sparse_conv._scatter_bwd_kernel
+    launches = (fwd.launches, bwd.launches)
+    got = conv()
+    assert (fwd.launches, bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    monkeypatch.setattr(sparse_conv, "transpose_gather",
+                        sparse_conv.transpose_gather_plain)
+    ref = conv()
+    assert (fwd.launches, bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a.float()).all())
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_transpose_gather_rejects_bad_input(dev):
+    pyr = _pyramid(dev, 300, [1024, 512])
+    fine = pyr.levels[0]
+    y = torch.randn(512, 1, 8, 16, device=dev, dtype=torch.bfloat16)
+    ok = (fine.parent_idx < 512) & fine.geom.mask
+    run = sparse_conv.transpose_gather
+    with pytest.raises(ValueError, match="int32"):
+        run(y, fine.parent_idx.long(), fine.up_tap, ok, torch.float32)
+    with pytest.raises(ValueError, match="shape"):
+        run(y[:, :, :4], fine.parent_idx, fine.up_tap, ok, torch.float32)
+    with pytest.raises(ValueError, match="dtypes"):
+        run(y.half(), fine.parent_idx, fine.up_tap, ok, torch.float32)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        run(y.transpose(0, 3), fine.parent_idx, fine.up_tap, ok,
+            torch.float32)
 
 
 # ---------------- the refiner: kernel C2, chamfer, RefineTask ----------------

@@ -124,3 +124,94 @@ def test_transpose_conv(pyramids, G, cin, cout):
                                     tf.up_tap, torch.from_numpy(w),
                                     tf.geom.mask, groups=G)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("G,cin,cout", [(1, 4, 8), (2, 6, 5)])
+def test_transpose_conv_gradients(pyramids, G, cin, cout):
+    """The CPU path's gradients (coarse feats, weights) against jax.vjp of
+    the JAX package's transpose conv, float32, on levels whose coarse level
+    overflows (fine rows with parent_idx == capacity). Both sum the same
+    products in other orders: rtol 1e-5, atol 1e-5 of the largest."""
+    j, t = pyramids
+    jc, tc = j.levels[2], t.levels[2]
+    jf, tf = j.levels[1], t.levels[1]
+    assert int(tc.geom.overflow) > 0 and bool((tf.parent_idx
+                                               == CAPS[2]).any())
+    f, w, _ = _inputs(cin + 2, CAPS[2], jc.geom.mask, G, cin, cout)
+    w = w[:8]
+    g = np.random.default_rng(cin).normal(
+        0, 1, (CAPS[1], G * cout)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jsc.sparse_conv_transpose(
+        a, jf.parent_idx, jf.up_tap, b, jf.geom.mask, groups=G),
+        jnp.asarray(f), jnp.asarray(w))
+    ref_df, ref_dw = (np.asarray(r) for r in vjp(jnp.asarray(g)))
+    tf_, tw = (torch.from_numpy(a).requires_grad_() for a in (f, w))
+    tsc.sparse_conv_transpose(tf_, tf.parent_idx, tf.up_tap, tw,
+                              tf.geom.mask, groups=G).backward(
+        torch.from_numpy(g))
+    for got, ref in ((tf_.grad, ref_df), (tw.grad, ref_dw)):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_up_maps_give_ok_rows_distinct_slots(pyramids, level):
+    """The precondition of the transpose gather's card kernels: on a
+    pyramid of two items whose levels 1 and up overflow (level 0 holds
+    padding rows, level 1 children of dropped parents), the rows with
+    parent_idx < Vc (and the fine mask) have pairwise distinct slots
+    parent_idx * 8 + tap, so its backward's plain stores never collide."""
+    _, t = pyramids
+    fine, coarse = t.levels[level], t.levels[level + 1].geom
+    ok = (fine.parent_idx < coarse.capacity) & fine.geom.mask
+    slots = fine.parent_idx[ok].long() * 8 + fine.up_tap[ok].long()
+    assert int(ok.sum()) > 0
+    assert slots.unique().numel() == slots.numel()
+    assert bool(((fine.up_tap >= 0) & (fine.up_tap < 8))[ok].all())
+    if level == 0:     # padding rows
+        assert bool((~fine.geom.mask).any())
+    if level == 1:     # children of dropped parents: valid, not ok
+        assert bool((fine.geom.mask & ~ok).any())
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("G,y_dtype,out_dtype", [
+    (1, torch.bfloat16, torch.float32), (2, torch.bfloat16, torch.bfloat16),
+    (1, torch.float32, torch.float32), (2, torch.float32, torch.bfloat16)])
+def test_transpose_gather_plain_is_a_slot_copy(pyramids, G, y_dtype,
+                                               out_dtype):
+    """What the card kernels compute, held against the plain version on
+    the CPU bit for bit: the output is y's ok slot widened or rounded once
+    to the output dtype and +0 elsewhere; the gradient of y is +0 in every
+    slot but the ok rows', which hold 0 + the row's cotangent rounded once
+    to y's dtype. Rows that are not ok carry NaN cotangents, which must not
+    reach the gradient. CPU tensors launch no kernel."""
+    _, t = pyramids
+    fine, Vc, cout = t.levels[1], CAPS[2], 12
+    ok = (fine.parent_idx < Vc) & fine.geom.mask
+    gen = torch.Generator().manual_seed(G)
+    y = torch.randn(Vc, G, 8, cout, generator=gen).to(y_dtype)
+    y[0, 0, 0, 0] = -0.0
+    g = torch.randn(CAPS[1], G * cout, generator=gen).to(out_dtype)
+    g[~ok] = float("nan")
+    g[ok.nonzero()[0, 0], 0] = -0.0
+    launches = (tsc._gather_fwd_kernel.launches,
+                tsc._scatter_bwd_kernel.launches)
+    y.requires_grad_()
+    out = tsc.transpose_gather(y, fine.parent_idx, fine.up_tap, ok,
+                               out_dtype)
+    out.backward(g)
+    assert (tsc._gather_fwd_kernel.launches,
+            tsc._scatter_bwd_kernel.launches) == launches
+    p, tap = fine.parent_idx[ok].long(), fine.up_tap[ok].long()
+    want = torch.zeros(CAPS[1], G, cout, dtype=out_dtype)
+    want[ok] = y.detach()[p, :, tap].to(out_dtype)
+    assert out.dtype == out_dtype
+    assert torch.equal(_bits(out), _bits(want.reshape(-1, G * cout)))
+    dy = torch.zeros(Vc, G, 8, cout, dtype=torch.float32)
+    dy[p, :, tap] = g[ok].float().reshape(-1, G, cout) + 0.0
+    assert y.grad.dtype == y_dtype
+    assert torch.equal(_bits(y.grad), _bits(dy.to(y_dtype)))
