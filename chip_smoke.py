@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`lidiff_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--steps S]
+    python3 chip_smoke.py [--steps S] [--ptv3-only]
 
 From the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a):
@@ -107,6 +107,21 @@ the kernels are built for sm_90a):
      runs it, after the backward kernels); phases 3, 6, 9, 10 and 11 count
      its launches: one forward for each transpose conv of a forward pass
      (once more with remat), one backward for each in a backward pass.
+ 18. on the `ptv3.train` benchmark cell's first batch (12 labelled scans
+     through Pointcept's transforms and Mix3D, about 0.9M voxels), holds
+     the convs of PTv3's xCPE at its two widest shapes, (256, 256) on
+     level 3 and (512, 512) on level 4, over the step's own level maps
+     in bf16 against their plain versions: A1 with its float32 bias, and
+     through autograd A2 (the feats gradient), A3 (the weight gradient,
+     returned in bf16: one rounding more is allowed) and the bias gradient
+     (the masked cotangent's column sums), and
+     times each beside its bound over hit taps; then 2 + 3 optimizer
+     steps of `SegTask` through `Trainer.train_step` (AdamW, OneCycleLR,
+     bf16), the launch counters reset to 0 just before the timed steps:
+     A1 twice a block (xCPE and A2's launch), A2 once, A3 once per 256
+     output channels (24), and the codes kernel once a step; before them, kernel `serial_codes` on the
+     batch's level 0 against the bit loops bit for bit, timed. With
+     `--ptv3-only` the run builds the kernels and runs this phase alone.
 It prints one line per phase, then a {"kernels": [...]} JSON line, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
@@ -167,6 +182,12 @@ TG_STAGES = (("UpStage_0", 576_512, 89_431, 1_152_000, 305_562, 256),
              ("UpStage_1", 1_152_000, 305_562, 1_440_768, 833_661, 128),
              ("UpStage_2", 1_440_768, 833_661, 1_440_768, 1_313_116, 96),
              ("UpStage_3", 1_440_768, 1_313_116, 1_440_768, 1_422_246, 96))
+# PTv3's xCPE convs held and timed at the `ptv3.train` cell's widest
+# shapes: (Cin, Cout, pyramid level); the last is the kernels line's
+PTV3_WIDTHS = ((256, 256, 3), (512, 512, 4))
+PTV3_BLOCKS = 22            # Blocks of PT-v3m1: an xCPE conv each
+PTV3_DB_TOL = 1e-5          # bias gradient: float32 column sums over up to
+                            # 76k rows against float64, x the sum of |cot|
 # small float32 training step, card against CPU: sums in other orders over
 # about 100 layers forward and backward, and BatchNorm over a few hundred
 # voxels on the coarse levels divides by small variances
@@ -243,7 +264,7 @@ class Count:
 def kernel_table() -> dict:
     """The launch counters of every kernel the main paths run, by name:
     each has a `launches` that its wrapper raises at a launch."""
-    from lidiff_tpu_torch.ops import fps, grid, knn, sparse_conv
+    from lidiff_tpu_torch.ops import fps, grid, knn, serialize, sparse_conv
     return {"A1": sparse_conv._conv3_kernel,
             "A4": sparse_conv._conv3_q_kernel,
             "A2": sparse_conv.Conv3ColumnsFunction,
@@ -254,7 +275,8 @@ def kernel_table() -> dict:
             "C1 index": Count(knn.NNIndex, "builds"),
             "C2": knn._tile_kernel, "F1": fps._fps_kernel,
             "TG": sparse_conv._gather_fwd_kernel,
-            "TG bwd": sparse_conv._scatter_bwd_kernel}
+            "TG bwd": sparse_conv._scatter_bwd_kernel,
+            "SC": serialize._codes_kernel}
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -2933,6 +2955,137 @@ _CATEGORIES = (("TG transpose_gather", ("transpose_gather_fwd",
                ("copy/cast/concat", ("copy",)))
 
 
+def run_ptv3(kernels, dev):
+    """Phase 18. Returns ({kernel: result} for the kernels line, the PTv3
+    step's launches over its timed steps)."""
+    import torch
+    from benchmark import harness
+    from benchmark.drivers import seg_train
+    from lidiff_tpu_torch.models import ptv3
+    from lidiff_tpu_torch.ops import grid, serialize
+    from lidiff_tpu_torch.ops import sparse_conv as sc
+    run = harness.make_run("ptv3.train", 18, 0.0, False, time.perf_counter())
+    cfg = seg_train._config(run)
+    batch = seg_train._batches(run, cfg, run.traffic, dev)[0][0]
+    task = ptv3.SegTask(cfg, device=dev, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        pyr = task.pyramid(batch)
+        levels, _ = task.levels(pyr, task.counts(
+            pyr, batch["offset"].shape[0]))
+    log(f"PTv3: {batch['offset'].shape[0]} elements, voxels per level "
+        f"{[lvl.n for lvl in levels]}")
+    # level 0's four codes: kernel serial_codes against the bit loops
+    rows = levels[0].geom.geom.coords[:levels[0].n]
+    depth = int(rows[:, 1:].max() + max(grid.GRID_SHIFT)).bit_length()
+    codes = serialize.level_codes(rows, grid.GRID_SHIFT, depth)
+    if not torch.equal(codes.cpu(), serialize.level_codes(
+            rows.cpu(), grid.GRID_SHIFT, depth)):
+        raise AssertionError("PTv3: kernel serial_codes differs from the "
+                             "bit loops at level 0")
+    ms = _time_ms(lambda: serialize.level_codes(rows, grid.GRID_SHIFT,
+                                                depth))
+    xyz = rows[:, 1:].long() + torch.tensor(grid.GRID_SHIFT, device=dev)
+    plain_ms = _time_ms(lambda: [serialize.encode(xyz, rows[:, 0], depth, o)
+                                 for o in serialize.ORDERS], 3)
+    bound, by = _bound_ms(0, PEAK_BF16, rows.shape[0] * (16 + 32))
+    log(f"PTv3: serial_codes = the bit loops at level 0 ({rows.shape[0]} "
+        f"rows, depth {depth}), {ms:.4f} ms (bound {bound:.4f}, {by}; the "
+        f"bit loops {plain_ms:.4f})")
+    res = {"SC": dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound, bound_by=by, library_ms=None)}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for cin, cout, li in PTV3_WIDTHS:
+        lvl = levels[li]
+        km, mask, n = lvl.kmap, lvl.mask, lvl.n
+        f = torch.randn(n, cin, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        w = (torch.randn(27, cin, cout, generator=gen, device=dev)
+             / math.sqrt(27 * cin)).to(torch.bfloat16).requires_grad_()
+        b = (0.1 * torch.randn(cout, generator=gen,
+                               device=dev)).requires_grad_()
+        cot = torch.randn(n, cout, generator=gen, device=dev)
+        maps = (km.col_idx, km.hit)
+        kw = dict(out_dtype=torch.float32, nvalid=km.nvalid, plan=km.plan())
+        out = sc.conv3_columns(f, *maps, w, mask, 1, bias=b, **kw)
+        df, dw, db = torch.autograd.grad(out, (f, w, b), cot)
+        fd, wd, bd = f.detach(), w.detach(), b.detach()
+        ref = sc.conv3_columns_plain(fd, *maps, wd, mask, 1, bias=bd).float()
+        cot_m = torch.where(mask[:, None], cot, 0.0)
+        w_rev = wd.flip(0).transpose(1, 2).contiguous()
+        df_ref = sc.conv3_columns_plain(cot_m.to(torch.bfloat16), *maps,
+                                        w_rev, mask, 1).float()
+        dw_ref = sc.conv3_columns_dw_plain(fd, cot_m.to(torch.bfloat16),
+                                           *maps, mask, 1)
+        db_ref = cot_m.double().sum(0)
+        errs = {}
+        for name, got, want in (("A1", out.detach(), ref),
+                                ("A2", df.float(), df_ref)):
+            err = (got - want).abs()
+            scale = float(want.abs().max())
+            errs[name] = float(err.max())
+            if not bool((err <= A1_BF16_RTOL * want.abs()
+                         + A1_BF16_ATOL * scale).all()):
+                raise AssertionError(
+                    f"PTv3 {name} ({cin},{cout}) L{li}: max err "
+                    f"{errs[name]:.3g} at scale {scale:.3g}")
+        # dW comes back in the weights' dtype, bf16: one rounding more
+        err3 = (dw.float() - dw_ref).abs()
+        errs["A3"] = float(err3.max())
+        if not bool((err3 <= A3_BF16_TOL * dw_ref.abs().max()
+                     + BF16_U * dw_ref.abs()).all()):
+            raise AssertionError(f"PTv3 A3 ({cin},{cout}) L{li}: max err "
+                                 f"{errs['A3']:.3g}")
+        err_b = (db.double() - db_ref).abs()
+        if not bool((err_b <= PTV3_DB_TOL * cot_m.abs().sum(0)).all()):
+            raise AssertionError(f"PTv3 bias gradient ({cin},{cout}) L{li}:"
+                                 f" max err {float(err_b.max()):.3g}")
+        hits = int(km.hit[:n][mask].sum())
+        flops = 2.0 * hits * cin * cout
+        kmap_bytes = n * (9 * 4 + 27 + 1)
+        fx = fd.requires_grad_()
+        o2 = sc.conv3_columns(fx, *maps, wd, mask, 1, **kw)
+        g_bf = cot_m.to(torch.bfloat16)
+        times = {
+            "A1": _time_ms(lambda: sc.conv3_columns(fd, *maps, wd, mask, 1,
+                                                    bias=bd, **kw)),
+            "A2": _time_ms(lambda: torch.autograd.grad(o2, fx, cot,
+                                                       retain_graph=True)),
+            "A3": _time_ms(lambda: sc.conv3_columns_dw(
+                fd, g_bf, *maps, mask, 1, nvalid=km.nvalid,
+                plan=km.plan()))}
+        nbytes = {"A1": n * cin * 2 + kmap_bytes + 27 * cin * cout * 2
+                  + cout * 4 + n * cout * 4,
+                  "A2": n * cout * 4 + kmap_bytes + 27 * cin * cout * 2
+                  + n * cin * 2,
+                  "A3": n * cin * 2 + n * cout * 2 + kmap_bytes
+                  + 27 * cin * cout * 4}
+        for k in ("A1", "A2", "A3"):
+            bound, by = _bound_ms(flops, PEAK_BF16, nbytes[k])
+            res[f"{k} xCPE"] = dict(max_abs_err=errs[k], ms=times[k],
+                                    plain_ms=None, bound_ms=bound,
+                                    bound_by=by, library_ms=None)
+        log(f"PTv3 xCPE ({cin},{cout}) L{li} n={n} bf16, "
+            f"{hits / n:.2f} hit taps/voxel: A1 with bias max err "
+            f"{errs['A1']:.3g}, A2 {errs['A2']:.3g}, A3 {errs['A3']:.3g}, "
+            f"bias gradient {float(err_b.max()):.3g}; A1 {times['A1']:.4f} "
+            f"ms, A2 {times['A2']:.4f}, A3 {times['A3']:.4f} (bound "
+            f"{res['A1 xCPE']['bound_ms']:.4f} each, {flops / 1e9:.1f} "
+            f"GFLOP over hit taps)")
+        del f, w, b, out, df, dw, db, ref, df_ref, dw_ref, o2, fx
+    del pyr, levels
+    torch.cuda.empty_cache()
+    # A3 launches once per DW_MAX_CO output channels of a conv
+    a3 = sum(-(-b.cpe.conv_kernel.shape[2] // sc.DW_MAX_CO)
+             for b in task.model.blocks())
+    want = {"A1": 2 * PTV3_BLOCKS, "A2": PTV3_BLOCKS, "A3": a3, "SC": 1}
+    launches = train_steps(
+        task, cfg, batch, torch.Generator(device=dev).manual_seed(19),
+        kernels, dev, "PTv3 training", "loss", want,
+        lambda m: f"loss {float(m['loss']):.4f}")
+    return res, {("SC" if k == "SC" else f"{k} xCPE"): launches[k]
+                 for k in want}
+
+
 def _category(kernel_name: str) -> str:
     low = kernel_name.lower()
     # A4 runs A1's tile kernels on int8 (`signed char`) feats
@@ -3010,6 +3163,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
                     help="solver steps of the completion (default 4)")
+    ap.add_argument("--ptv3-only", action="store_true",
+                    help="build the kernels and run phase 18 alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -3038,9 +3193,15 @@ def main(argv=None) -> int:
     for name, rep in reports.items():
         log_ptxas(name, rep)
 
-    res, paths = run(args.steps)
-    # the plan's taps: a second entry point of B1's source
-    res["B1"]["taps_launches"] = paths["sampling"]["B1 taps"]
+    if args.ptv3_only:
+        res, paths = {}, {}
+    else:
+        res, paths = run(args.steps)
+        # the plan's taps: a second entry point of B1's source
+        res["B1"]["taps_launches"] = paths["sampling"]["B1 taps"]
+    # ---- 18. PTv3's train step ----
+    ptv3_res, paths["ptv3 training"] = run_ptv3(kernel_table(), "cuda")
+    res.update(ptv3_res)
     # kernel: (source, TPU kernel it replaces, the path its count is from)
     sources = {
         "A1": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:840",
@@ -3065,7 +3226,18 @@ def main(argv=None) -> int:
                "refiner training"),
         "TG bwd": ("transpose_gather",
                    "none: XLA's transpose of that gather",
-                   "refiner training")}
+                   "refiner training"),
+        "A1 xCPE": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:840",
+                    "ptv3 training"),
+        "A2 xCPE": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:667",
+                    "ptv3 training"),
+        "A3 xCPE": ("conv3_columns_dw", "lidiff_tpu/ops/pallas_conv.py:568",
+                    "ptv3 training"),
+        "SC": ("serial_codes", "none: the JAX package has no PTv3",
+               "ptv3 training")}
+    if args.ptv3_only:
+        sources = {k: v for k, v in sources.items()
+                   if k.endswith("xCPE") or k == "SC"}
     for path, names in (
             ("sampling", ("A1", "B1", "B1 taps", "C1", "TG")),
             ("sampling unfused", ("A1", "B1", "B1 taps", "C1", "TG")),
@@ -3079,7 +3251,10 @@ def main(argv=None) -> int:
                                   "TG", "TG bwd")),
             (f"refiner training at batch {REFINE_BATCH}",
              ("A1", "A2", "A3", "B1", "B1 taps", "C2", "TG", "TG bwd")),
-            ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1", "TG"))):
+            ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1", "TG")),
+            ("ptv3 training", ("A1 xCPE", "A2 xCPE", "A3 xCPE", "SC"))):
+        if path not in paths:
+            continue
         for n in names:
             if paths[path][n] == 0:
                 raise AssertionError(f"kernel {n} was not launched on the "

@@ -17,7 +17,8 @@ from lidiff_tpu_torch.parallel import mesh
 
 
 class DataLoader:
-    """Batches of `batch_size` items in a (seeded) shuffled order. With
+    """Batches of `batch_size` items in a (seeded) shuffled order, joined
+    by `collate_fn` (default: `collation.collate` with `part_key`). With
     `world` > 1 it yields rank `rank`'s rows [rank*B/world,
     (rank+1)*B/world) of each global batch: the ranks share the order, so
     their rows make up the one-process batch."""
@@ -25,7 +26,9 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  part_key: str = "pcd_part", num_workers: int = 2,
                  seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2, rank: int = 0, world: int = 1):
+                 prefetch: int = 2, rank: int = 0, world: int = 1,
+                 collate_fn=None):
+        self.collate_fn = collate_fn
         self.rows = mesh.rank_slice(batch_size, rank, world)
         self.dataset = dataset
         self.batch_size = batch_size
@@ -83,7 +86,8 @@ class DataLoader:
                     return
                 try:
                     items = [self.dataset[int(j)] for j in b]
-                    batch = collate(items, self.part_key)
+                    batch = (self.collate_fn(items) if self.collate_fn
+                             else collate(items, self.part_key))
                 except Exception as e:            # surface in main thread
                     batch = e
                 with results_lock:

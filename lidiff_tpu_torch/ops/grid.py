@@ -465,3 +465,68 @@ def build_pyramid(points: torch.Tensor, resolution: float,
             levels.append(LevelGeom(geom=g, kmap3=build_kmap3_columns(g),
                                     parent_idx=parent_idx, up_tap=up_tap))
     return Pyramid(levels=tuple(levels), point2voxel=p2v, vox_feats=vox_feats)
+
+
+# grid coordinates are kept shifted into the keys' signed range: x and y
+# from [0, 4096) by 2048, z from [0, 3072) by 1024 (a column map's lowest
+# query, z - 1, must stay in range). The shifts are multiples of every
+# level's stride, so pooling is unchanged.
+GRID_SHIFT = (K.COORD_OFF, K.COORD_OFF, K.COORD_OFF // 2)
+
+
+_grid_shift: dict = {}
+
+
+def grid_shift(device) -> torch.Tensor:
+    """GRID_SHIFT as an int32 tensor on `device`, made once a device: a
+    copy from the host each call would make the host wait for the card."""
+    device = torch.device(device)
+    if device not in _grid_shift:
+        _grid_shift[device] = torch.tensor(GRID_SHIFT, dtype=torch.int32,
+                                           device=device)
+    return _grid_shift[device]
+
+
+def build_pyramid_grid(grid: torch.Tensor, element: torch.Tensor,
+                       feats: torch.Tensor, capacities: Sequence[int],
+                       num_levels: int) -> Pyramid:
+    """The pyramid of points already on an integer grid (Pointcept's
+    `grid_coord`: floor(coord / grid size) minus the item's minimum, in
+    [0, 4096) in x and y, [0, 3072) in z): `grid` [N, 3], the element of each point `element` [N]
+    (a batch item, or a Mix3D pair) and its features `feats` [N, C]. Level
+    0 holds one voxel per distinct (element, coordinate) with the mean of
+    its points' features, its coordinates stored as grid - GRID_SHIFT;
+    level l + 1 pools level l by floor(c / 2^(l+1)), which on the grid is
+    PTv3's pooling by `code >> 3`. point2voxel is [1, N]."""
+    assert len(capacities) >= num_levels
+    N, C = feats.shape
+    dev = feats.device
+    with prof.annotate("lidiff.geom.pyramid"):
+        key, _ = K.pack(element, grid.to(torch.int32) - grid_shift(dev))
+        key_s, order, vid, n_unique = _unique_sorted(key, capacities[0])
+        p2v = torch.empty(N, dtype=torch.int32, device=dev)
+        p2v[order] = vid
+        geom0 = _level_from_keys(capacities[0], vid, key_s, n_unique,
+                                 stride=1)
+        vidl = vid.long()
+        sums = torch.zeros(capacities[0] + 1, C, dtype=feats.dtype,
+                           device=dev)
+        sums.index_add_(0, vidl, feats[order])
+        cnts = torch.zeros(capacities[0] + 1, dtype=torch.float32,
+                           device=dev)
+        cnts.index_add_(0, vidl, torch.ones_like(vidl, dtype=torch.float32))
+        vox_feats = sums[:capacities[0]] \
+            / cnts[:capacities[0]].clamp(min=1.0)[:, None]
+        geoms, c2ps = [geom0], []
+        for li in range(1, num_levels):
+            g, c2p = pool_geom(geoms[-1], capacities[li])
+            geoms.append(g)
+            c2ps.append(c2p)
+        levels = []
+        for li, g in enumerate(geoms):
+            parent_idx, up_tap = (up_maps(g, c2ps[li])
+                                  if li + 1 < num_levels else (None, None))
+            levels.append(LevelGeom(geom=g, kmap3=build_kmap3_columns(g),
+                                    parent_idx=parent_idx, up_tap=up_tap))
+    return Pyramid(levels=tuple(levels), point2voxel=p2v[None],
+                   vox_feats=vox_feats)

@@ -60,7 +60,8 @@ from lidiff_tpu_torch.utils import prof
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.bfloat16, torch.float32)}
-MAX_CIN = 384
+MAX_CIN = 512      # the column conv and its weight gradient (A1, A3)
+MAX_CIN_Q = 384    # the int8 conv (A4)
 
 _conv3_kernel = native.Kernel(
     "conv3_columns", "conv3_columns",
@@ -160,18 +161,20 @@ def conv3_columns(feats, col_idx, hit, weights, out_mask, groups, *,
     is the map's tile plan for the bf16 kernel (`ColumnKernelMap.plan()`);
     without it the wrapper builds one from `hit` and `out_mask`.
 
-    With autograd enabled and feats or weights requiring a gradient, the
-    call goes through `Conv3ColumnsFunction`; the bias/ReLU epilogue is the
-    eval-only BN fold and raises there."""
+    With autograd enabled and feats, weights or bias requiring a
+    gradient, the call goes through `Conv3ColumnsFunction`, bias included;
+    the ReLU epilogue is the eval-only BN fold and raises there."""
     out_dtype = out_dtype or feats.dtype
     if torch.is_grad_enabled() and (feats.requires_grad
-                                    or weights.requires_grad):
-        if bias is not None or relu:
+                                    or weights.requires_grad
+                                    or (bias is not None
+                                        and bias.requires_grad)):
+        if relu:
             raise ValueError("conv3_columns: the bias/ReLU epilogue is "
                              "eval-only and has no gradient")
         return Conv3ColumnsFunction.apply(feats, weights, col_idx, hit,
                                           out_mask, nvalid, groups, out_dtype,
-                                          plan)
+                                          plan, bias)
     return _conv3_run(feats, col_idx, hit, weights, out_mask, groups, bias,
                       relu, out_dtype, nvalid, plan)
 
@@ -316,8 +319,8 @@ def _conv3_q_run(q, col_idx, hit, w_q, out_mask, groups, bias, relu,
     if Kt != 27 or q.shape != (V, G * C) or col_idx.shape != (V, 9) \
             or hit.shape != (V, 27) or out_mask.shape != (V,) or V == 0:
         raise ValueError("conv3_columns_q: shape mismatch")
-    if C > MAX_CIN or G not in (1, 2):
-        raise ValueError(f"conv3_columns_q: C={C} > {MAX_CIN} or G={G}")
+    if C > MAX_CIN_Q or G not in (1, 2):
+        raise ValueError(f"conv3_columns_q: C={C} > {MAX_CIN_Q} or G={G}")
     if col_idx.dtype != torch.int32 or hit.dtype != torch.bool \
             or out_mask.dtype != torch.bool:
         raise ValueError("conv3_columns_q: want int32 col_idx, bool hit/mask")
@@ -548,7 +551,9 @@ class Conv3ColumnsFunction(torch.autograd.Function):
     o is i's tap 26 - k), which holds for a level's own 27-tap map with
     `out_mask` the level's mask. The feats gradient runs over the forward's
     tile plan: its rows and taps are the forward's. CPU tensors take the
-    plain versions of both kernels under the same rule."""
+    plain versions of both kernels under the same rule. A bias (float32,
+    [Co]) is added in the forward's epilogue; its gradient is the masked
+    cotangent summed over the rows and groups."""
 
     # feats-gradient launches of kernel A1 made by `backward` (they also
     # count as launches of A1)
@@ -556,21 +561,26 @@ class Conv3ColumnsFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, weights, col_idx, hit, out_mask, nvalid, groups,
-                out_dtype, plan):
+                out_dtype, plan, bias=None):
         if plan is None and feats.is_cuda and feats.dtype == torch.bfloat16:
             plan = tile_plan(hit, out_mask)
         if plan is not None and ctx.needs_input_grad[1]:
             dw_prepare(plan)
         ctx.save_for_backward(feats, weights, col_idx, hit, out_mask, nvalid)
         ctx.groups, ctx.plan = groups, plan
+        ctx.bias_dtype = None if bias is None else bias.dtype
         return _conv3_run(feats, col_idx, hit, weights, out_mask, groups,
-                          None, False, out_dtype, nvalid, plan)
+                          bias, False, out_dtype, nvalid, plan)
 
     @staticmethod
     def backward(ctx, g):
         feats, weights, col_idx, hit, out_mask, nvalid = ctx.saved_tensors
-        g = torch.where(out_mask[:, None], g, 0.0).to(feats.dtype)
-        g = g.contiguous()
+        g = torch.where(out_mask[:, None], g, 0.0)
+        db = None
+        if ctx.needs_input_grad[9]:
+            db = g.float().sum(0).reshape(ctx.groups, -1).sum(0).to(
+                ctx.bias_dtype)
+        g = g.to(feats.dtype).contiguous()
         df = dw = None
         if ctx.needs_input_grad[0]:
             w_rev = weights.flip(0).transpose(1, 2).contiguous()
@@ -582,7 +592,7 @@ class Conv3ColumnsFunction(torch.autograd.Function):
             dw = conv3_columns_dw(feats, g, col_idx, hit, out_mask,
                                   ctx.groups, nvalid=nvalid, plan=ctx.plan)
             dw = dw.to(weights.dtype)
-        return df, dw, None, None, None, None, None, None, None
+        return df, dw, None, None, None, None, None, None, None, db
 
 
 def sparse_conv_columns(feats, kmap: ColumnKernelMap, weights, out_mask, *,

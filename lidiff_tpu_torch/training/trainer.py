@@ -2,7 +2,9 @@
 data parallelism (counterpart of lidiff_tpu/training/trainer.py).
 
 Adam(0.9, 0.999, eps 1e-8) with the stepped exponential decay of the
-reference (gamma 0.5 every 5 epochs), one `torch.save` file per checkpoint
+reference (gamma 0.5 every 5 epochs), or, where the config's `train`
+section has an `optimizer` (the PTv3 config), AdamW over parameter groups
+with OneCycleLR (`make_adamw_onecycle`); one `torch.save` file per checkpoint
 (every epoch, all kept), tensorboardX metric logging where it is installed.
 The training state lives in the task's model, the optimizer and the
 scheduler, as is PyTorch's habit; the JAX trainer passes it around as a
@@ -14,6 +16,7 @@ averaged over the ranks, and only rank 0 writes checkpoints and logs.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import signal
@@ -36,6 +39,52 @@ def make_optimizer(params, lr: float, decay_every_epochs: int = 5,
     opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, factor)
     return opt, sched, lambda step: lr * factor(step)
+
+
+def make_adamw_onecycle(named_params, opt: dict, sched: dict,
+                        total_steps: int):
+    """AdamW over parameter groups, with torch's OneCycleLR stepped once
+    per optimizer step (Pointcept's `AdamW` + `OneCycleLR`, the PTv3
+    configs). `opt`: {"lr", "weight_decay", "param_groups": [{"keyword",
+    "lr"}, ...]}: a parameter whose name contains a group's keyword goes
+    to that group (the first that matches), the rest to the default one,
+    listed first. `sched`: OneCycleLR's "max_lr" (one per group, in that
+    order), "pct_start", "anneal_strategy", "div_factor" and
+    "final_div_factor"; it cycles Adam's beta1 between 0.85 and 0.95, as
+    its default does. Returns (optimizer, scheduler, schedule) with
+    schedule(step) the default group's learning rate of step `step`."""
+    if opt.get("type", "AdamW") != "AdamW" \
+            or sched.get("type", "OneCycleLR") != "OneCycleLR":
+        raise ValueError("the config's optimizer and scheduler must be "
+                         "AdamW and OneCycleLR")
+    groups = [dict(keyword=None, params=[], lr=float(opt["lr"]))]
+    groups += [dict(keyword=g["keyword"], params=[], lr=float(g["lr"]))
+               for g in opt.get("param_groups", [])]
+    for name, p in named_params:
+        g = next((g for g in groups[1:] if g["keyword"] in name), groups[0])
+        g["params"].append(p)
+    optimizer = torch.optim.AdamW(
+        [{"params": g["params"], "lr": g["lr"]} for g in groups],
+        lr=float(opt["lr"]), weight_decay=float(opt["weight_decay"]))
+    scheduler = torch.optim.lr_scheduler.OneCycleLR(
+        optimizer, max_lr=list(sched["max_lr"]), total_steps=total_steps,
+        pct_start=float(sched["pct_start"]),
+        anneal_strategy=sched.get("anneal_strategy", "cos"),
+        div_factor=float(sched["div_factor"]),
+        final_div_factor=float(sched["final_div_factor"]))
+    top, lo = float(sched["max_lr"][0]), float(sched["pct_start"])
+    start = top / float(sched["div_factor"])
+    end = start / float(sched["final_div_factor"])
+    up = lo * total_steps - 1
+
+    def schedule(step: int) -> float:
+        if step <= up:
+            a, b, pct = start, top, step / up
+        else:
+            a, b, pct = top, end, (step - up) / (total_steps - 1 - up)
+        return b + (a - b) / 2.0 * (math.cos(math.pi * pct) + 1)
+
+    return optimizer, scheduler, schedule
 
 
 class CheckpointManager:
@@ -132,9 +181,17 @@ class Trainer:
         self.cfg = cfg
         self.exp_dir = exp_dir
         self.steps_per_epoch = steps_per_epoch
-        self.optimizer, self.scheduler, self.schedule = make_optimizer(
-            task.model.parameters(), float(cfg["train"]["lr"]),
-            steps_per_epoch=steps_per_epoch)
+        tr = cfg["train"]
+        if "optimizer" in tr:
+            self.optimizer, self.scheduler, self.schedule = \
+                make_adamw_onecycle(
+                    task.model.named_parameters(), tr["optimizer"],
+                    tr["scheduler"],
+                    int(tr["max_epoch"]) * max(steps_per_epoch, 1))
+        else:
+            self.optimizer, self.scheduler, self.schedule = make_optimizer(
+                task.model.parameters(), float(tr["lr"]),
+                steps_per_epoch=steps_per_epoch)
         self.ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
         self.logger = MetricLogger(os.path.join(exp_dir, "tb"),
                                    enabled=self.is_main)

@@ -6,7 +6,9 @@ Chrome trace. `annotate(name)` is the program's one span call: inside a
 trace it records a named range on the profiler's clock, which also gets a
 device-side extent over the kernels launched inside it; outside a trace it
 costs one check and records nothing. `annotate_backward(t, name)` names the
-backward of the autograd node that made `t` the same way.
+backward of the autograd node that made `t` the same way, and
+`annotate_backward_region(first, last, name)` the backward of the nodes
+from the one that made `last` down to the one that made `first`.
 `block_and_time` runs a function and waits for the card before it stops
 the clock.
 """
@@ -60,9 +62,21 @@ def annotate_backward(t: torch.Tensor, name: str) -> torch.Tensor:
     and a post-hook leaves it, both on the thread that runs the node
     (autograd's own for a card), so the span's device extent holds that
     node's kernels."""
-    node = t.grad_fn
-    if node is None or not torch._C._autograd._profiler_enabled():
-        return t
+    return annotate_backward_region(t, t, name)
+
+
+def annotate_backward_region(first: torch.Tensor, last: torch.Tensor,
+                             name: str) -> torch.Tensor:
+    """Return `last`; while the profiler records, the backward pass from
+    the node that made `last` down to the node that made `first` runs
+    inside a span `name`: a pre-hook of the one enters it and a post-hook
+    of the other leaves it. The nodes made between them in the forward
+    pass run between them in the backward pass (the engine runs the later
+    made first), so the span holds the region's kernels."""
+    start, end = last.grad_fn, first.grad_fn
+    if start is None or end is None \
+            or not torch._C._autograd._profiler_enabled():
+        return last
     entered = []
 
     def enter(grad_outputs):
@@ -74,9 +88,9 @@ def annotate_backward(t: torch.Tensor, name: str) -> torch.Tensor:
             torch.ops.profiler._record_function_exit._RecordFunction(
                 entered.pop())
 
-    node.register_prehook(enter)
-    node.register_hook(leave)
-    return t
+    start.register_prehook(enter)
+    end.register_hook(leave)
+    return last
 
 
 def block_and_time(fn, *args, **kwargs):
