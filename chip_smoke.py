@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`lidiff_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--steps S] [--ptv3-only]
+    python3 chip_smoke.py [--steps S] [--ptv3-only | --bn-only]
 
 From the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a):
@@ -122,6 +122,19 @@ the kernels are built for sm_90a):
      output channels (24), and the codes kernel once a step; before them, kernel `serial_codes` on the
      batch's level 0 against the bit loops bit for bit, timed. With
      `--ptv3-only` the run builds the kernels and runs this phase alone.
+ 19. holds training-mode BatchNorm with its ReLU (`ops/batchnorm.py`,
+     kernels `masked_bn_*` in `csrc/masked_bn.cu`) against the eager
+     version on the same float32 tensors at the refiner's shapes at batch
+     8 (L0 1,440,768 x 96, L3 1,152,000 x 256, L4 576,512 x 256, valid
+     rows as in phase 17): the output bit for bit given the kernels'
+     moments and between two calls, the moments and the gradients of x,
+     scale and bias within BN_F32_TOL; and times it forward and backward
+     beside the eager version and its bound by bytes (phase 2 runs it,
+     after TG). Phases 3, 6, 9, 11 and 18 count its launches:
+     `masked_bn_apply` once per BatchNorm of a training forward (once more
+     for those inside a stage with remat), `masked_bn_dx` once per
+     BatchNorm backward, none in eval mode. With `--bn-only` the run
+     builds the kernels and runs this phase alone.
 It prints one line per phase, then a {"kernels": [...]} JSON line, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; so does a run without a CUDA device or
@@ -182,6 +195,13 @@ TG_STAGES = (("UpStage_0", 576_512, 89_431, 1_152_000, 305_562, 256),
              ("UpStage_1", 1_152_000, 305_562, 1_440_768, 833_661, 128),
              ("UpStage_2", 1_440_768, 833_661, 1_440_768, 1_313_116, 96),
              ("UpStage_3", 1_440_768, 1_313_116, 1_440_768, 1_422_246, 96))
+# training-mode BatchNorm (kernels masked_bn_*) at the refiner's shapes at
+# batch 8: (level, capacity rows, valid rows as TG_STAGES has them, C)
+BN_SHAPES = (("L0", 1_440_768, 1_422_246, 96), ("L3", 1_152_000, 305_562, 256),
+             ("L4", 576_512, 89_431, 256))
+BN_F32_TOL = 1e-4           # fused against eager float32 BatchNorm, x the
+                            # largest |ref| (1 + it for the output): the same
+                            # values summed in other orders
 # PTv3's xCPE convs held and timed at the `ptv3.train` cell's widest
 # shapes: (Cin, Cout, pyramid level); the last is the kernels line's
 PTV3_WIDTHS = ((256, 256, 3), (512, 512, 4))
@@ -264,7 +284,8 @@ class Count:
 def kernel_table() -> dict:
     """The launch counters of every kernel the main paths run, by name:
     each has a `launches` that its wrapper raises at a launch."""
-    from lidiff_tpu_torch.ops import fps, grid, knn, serialize, sparse_conv
+    from lidiff_tpu_torch.ops import (batchnorm, fps, grid, knn, serialize,
+                                      sparse_conv)
     return {"A1": sparse_conv._conv3_kernel,
             "A4": sparse_conv._conv3_q_kernel,
             "A2": sparse_conv.Conv3ColumnsFunction,
@@ -276,7 +297,8 @@ def kernel_table() -> dict:
             "C2": knn._tile_kernel, "F1": fps._fps_kernel,
             "TG": sparse_conv._gather_fwd_kernel,
             "TG bwd": sparse_conv._scatter_bwd_kernel,
-            "SC": serialize._codes_kernel}
+            "SC": serialize._codes_kernel,
+            "BN": batchnorm._apply_kernel, "BN bwd": batchnorm._dx_kernel}
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -906,6 +928,103 @@ def check_transpose_gather(dev):
     return res
 
 
+def check_masked_bn(dev):
+    """Training-mode BatchNorm with its ReLU (`ops/batchnorm.py`
+    `masked_bn_train` on a CUDA tensor: kernels masked_bn_*) at BN_SHAPES,
+    float32 as the refiner runs it: against the eager version on the same
+    tensors (the output bit for bit given the kernels' moments, within
+    BN_F32_TOL with the eager moments; the gradients of x, scale and bias,
+    the eager ReLU on the kernels' signs, within BN_F32_TOL of their
+    largest; a repeated call bit for bit), then
+    timed forward and backward (through autograd) beside the eager
+    version and the bound by bytes: forward x read twice over the valid
+    rows and out written over all (12 bytes an element when all are
+    valid), backward x, out and dy read twice over the valid rows and dx
+    written over all (28). Returns the kernels line's "BN" and "BN bwd",
+    summed over the three shapes."""
+    import torch
+    from lidiff_tpu_torch.ops import batchnorm as bn
+    gen = torch.Generator(device=dev).manual_seed(19)
+    keys = ("ms", "plain_ms", "bound_ms")
+    fwd, bwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    worst = 0.0      # the output's largest error against the eager one
+    for level, V, n, C in BN_SHAPES:
+        x = torch.randn(V, C, generator=gen, device=dev) * 2.0 + 0.5
+        mask = torch.zeros(V, dtype=torch.bool, device=dev)
+        mask[torch.randperm(V, generator=gen, device=dev)[:n]] = True
+        scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+        cot = torch.randn(V, C, generator=gen, device=dev)
+        xt, st, bt = (t.clone().requires_grad_() for t in (x, scale, bias))
+        out, mean, var, cnt = bn.masked_bn_train(xt, mask, st, bt, 1e-5,
+                                                 relu=True)
+        grads = torch.autograd.grad(out, (xt, st, bt), cot,
+                                    retain_graph=True)
+        again = bn.masked_bn_train(x, mask, scale, bias, 1e-5, relu=True)[0]
+        # the eager code with its ReLU on the kernels' signs: moments that
+        # differ in the last bit flip the ReLU of an input within rounding
+        # of 0, and that element's gradient with it
+        xr, sr, br = (t.clone().requires_grad_() for t in (x, scale, bias))
+        rm, rv, rc = bn.masked_moments(xr, mask)
+        ref = torch.where(out > 0, bn.normalize_plain(xr, mask, rm, rv, sr,
+                                                      br, 1e-5), 0.0)
+        ref_grads = torch.autograd.grad(ref, (xr, sr, br), cot,
+                                        retain_graph=True)
+        same = bn.normalize_plain(x, mask, mean, var, scale, bias, 1e-5,
+                                  relu=True)
+        if not (torch.equal(out, same) and torch.equal(out, again)
+                and float(cnt) == float(rc) == n):
+            raise AssertionError(f"BN {level}: the output differs from the "
+                                 f"eager code's on the kernels' moments, or "
+                                 f"between two calls")
+        errs = [float((a - b).abs().max()) / (float(b.abs().max()) + extra)
+                for a, b, extra in ((out.detach(), ref.detach(), 1.0),
+                                    (mean, rm.detach(), 1.0),
+                                    (var, rv.detach(), 1.0),
+                                    *((g, r, 0.0) for g, r in
+                                      zip(grads, ref_grads)))]
+        worst = max(worst, float((out - ref).detach().abs().max()))
+        if not max(errs) <= BN_F32_TOL:
+            raise AssertionError(f"BN {level}: relative errors (out, mean, "
+                                 f"var, dx, dscale, dbias) {errs}")
+        del grads, ref_grads, same, again
+        xd = x
+        eager = bn.normalize_plain(xr, mask, rm, rv, sr, br, 1e-5, relu=True)
+        times = {
+            "fwd": _time_ms(lambda: bn.masked_bn_train(
+                xd, mask, scale, bias, 1e-5, relu=True), 5),
+            "bwd": _time_ms(lambda: torch.autograd.grad(
+                out, (xt, st, bt), cot, retain_graph=True), 5),
+            "plain_fwd": _time_ms(lambda: bn.normalize_plain(
+                xd, mask, *bn.masked_moments(xd, mask)[:2], scale, bias,
+                1e-5, relu=True), 3),
+            "plain_bwd": _time_ms(lambda: torch.autograd.grad(
+                eager, (xr, sr, br), cot, retain_graph=True), 3)}
+        fwd_b, _ = _bound_ms(0, PEAK_F32, n * C * 8 + V * C * 4 + 2 * V)
+        bwd_b, _ = _bound_ms(0, PEAK_F32, n * C * 24 + V * C * 4 + 2 * V)
+        for d, ms, plain, bound in (
+                (fwd, times["fwd"], times["plain_fwd"], fwd_b),
+                (bwd, times["bwd"], times["plain_bwd"], bwd_b)):
+            for k, v in zip(keys, (ms, plain, bound)):
+                d[k] += v
+        log(f"BN {level} rows={V} valid {n} C={C} float32, ReLU: out = "
+            f"eager on the kernels' moments and between calls bit for bit, "
+            f"relative errors (out, mean, var, dx, dscale, dbias) "
+            f"{', '.join(f'{e:.2e}' for e in errs)}; forward "
+            f"{times['fwd']:.4f} ms (bound {fwd_b:.4f}, eager "
+            f"{times['plain_fwd']:.4f}), backward {times['bwd']:.4f} ms "
+            f"(bound {bwd_b:.4f}, eager {times['plain_bwd']:.4f})")
+        del out, ref, eager, x, xt, xr, xd, cot, mask
+        torch.cuda.empty_cache()
+    log(f"BN over the three shapes: forward {fwd['ms']:.4f} ms (bound "
+        f"{fwd['bound_ms']:.4f}, eager {fwd['plain_ms']:.4f}), backward "
+        f"{bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}, eager "
+        f"{bwd['plain_ms']:.4f})")
+    return {n: dict(max_abs_err=worst, **d, bound_by="bytes",
+                    library_ms=None)
+            for n, d in (("BN", fwd), ("BN bwd", bwd))}
+
+
 def check_gather_form(pyr, dev):
     """The gather-form kernel-map API on the sampling pyramid, with the
     launch counts of its run: (a) `build_kernel_map` at every level against
@@ -1318,6 +1437,7 @@ def run(steps: int, dev: str = "cuda"):
                       g0.mask, bank.coords, bank.mask, 1)
     res.update(check_backward(pyr, sparse_conv, dev))
     res.update(check_transpose_gather(dev))
+    res.update(check_masked_bn(dev))
     gather_launches = check_gather_form(pyr, dev)
     res["F1"] = check_f1(dev)
     log(f"kernel checks: {time.time() - t0:.1f} s")
@@ -1346,7 +1466,8 @@ def run(steps: int, dev: str = "cuda"):
     launches = {n: k.launches for n, k in kernels.items()}
     # per guided step one match per level and bank, the uncond bank's a
     # scan; one index per bank and completion
-    want = {"C1": 10 * steps, "C1 scan": 5 * steps, "C1 index": 2}
+    want = {"C1": 10 * steps, "C1 scan": 5 * steps, "C1 index": 2,
+            "BN": 0, "BN bwd": 0}     # eval mode: BatchNorm folded
     if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
         raise AssertionError(f"completion launches {launches}, expected "
                              f"{want}")
@@ -1540,6 +1661,21 @@ def up_convs(model) -> int:
     from lidiff_tpu_torch.models.blocks import SparseConvTranspose
     return sum(1 for m in model.modules()
                if isinstance(m, SparseConvTranspose))
+
+
+def bn_sites(model) -> tuple:
+    """(the model's BatchNorms, those inside a DownStage or UpStage): a
+    training forward calls each once, and with remat the backward pass
+    calls those of the stages once more (each a fused launch of
+    `masked_bn_apply` on the card); the backward, `masked_bn_dx` once
+    each."""
+    from lidiff_tpu_torch.models.blocks import (DownStage, MaskedBatchNorm,
+                                                UpStage)
+    staged = sum(1 for st in model.modules()
+                 if isinstance(st, (DownStage, UpStage))
+                 for m in st.modules() if isinstance(m, MaskedBatchNorm))
+    return (sum(1 for m in model.modules()
+                if isinstance(m, MaskedBatchNorm)), staged)
 
 
 def grad_step(task, batch, draws):
@@ -2093,10 +2229,13 @@ def discrete_choices(tape: list, replay: bool, differ: dict):
     init a few voxels far from the target carry much of the gradient: one
     unit of such a voxel whose input lies within float32 rounding of zero,
     or one point that picks another neighbour, moves dozens of gradients by
-    up to 6e-2 of their size. Two devices are compared on the same piece."""
+    up to 6e-2 of their size. Two devices are compared on the same piece.
+    The fused BatchNorm of a card run takes its ReLU inside its kernels:
+    its signs are recorded from its output, and a replaying run must take
+    the plain path (a CPU run), whose ReLU is F.relu."""
     import torch
     import torch.nn.functional as F
-    from lidiff_tpu_torch.ops import chamfer
+    from lidiff_tpu_torch.ops import batchnorm, chamfer
     played = iter(tape)
 
     def choose(own, kind):
@@ -2118,16 +2257,31 @@ def discrete_choices(tape: list, replay: bool, differ: dict):
     def picks(fn):
         return lambda *a, **kw: choose(fn(*a, **kw), "picks")
 
+    fused = batchnorm.MaskedBatchNormFunction
+
+    class RecordedBN:
+        @staticmethod
+        def apply(*a):
+            out = fused.apply(*a)
+            if a[6]:                     # relu
+                if replay:
+                    raise AssertionError("a replaying run took the fused "
+                                         "BatchNorm")
+                choose(out[0] > 0, "signs")
+            return out
+
     saved = (F.relu, F.leaky_relu, chamfer.nn_indices_grid,
              chamfer.nn_indices)
     F.relu, F.leaky_relu = relu, leaky_relu
     chamfer.nn_indices_grid = picks(saved[2])
     chamfer.nn_indices = picks(saved[3])
+    batchnorm.MaskedBatchNormFunction = RecordedBN
     try:
         yield
     finally:
         (F.relu, F.leaky_relu, chamfer.nn_indices_grid,
          chamfer.nn_indices) = saved
+        batchnorm.MaskedBatchNormFunction = fused
 
 
 def check_small_refine_train(cfg_mod, dev):
@@ -2334,11 +2488,13 @@ def refine_steps(task, rcfg, batch, kernels, dev, what: str, remat: bool,
                 if isinstance(m, SparseConv) and m.kernel.shape[0] == 27)
     extra = stage_convs(task.model) if remat else 0
     ups = up_convs(task.model)
+    bns, staged = bn_sites(task.model)
     return train_steps(
         task, rcfg, batch, None, kernels, dev, what, "cd_loss",
         {"A3": convs, "A2": convs - 1, "A1": 2 * convs - 1 + extra,
          "B1": 5, "C2": 2, "C1": 0, "TG": ups * (2 if remat else 1),
-         "TG bwd": ups},
+         "TG bwd": ups, "BN": bns + (staged if remat else 0),
+         "BN bwd": bns},
         lambda m: f"cd_loss {float(m['cd_loss']):.4f}", instrument,
         profile=profile)
 
@@ -3077,13 +3233,15 @@ def run_ptv3(kernels, dev):
     # A3 launches once per DW_MAX_CO output channels of a conv
     a3 = sum(-(-b.cpe.conv_kernel.shape[2] // sc.DW_MAX_CO)
              for b in task.model.blocks())
-    want = {"A1": 2 * PTV3_BLOCKS, "A2": PTV3_BLOCKS, "A3": a3, "SC": 1}
+    bns = bn_sites(task.model)[0]       # no remat: each BatchNorm once
+    want = {"A1": 2 * PTV3_BLOCKS, "A2": PTV3_BLOCKS, "A3": a3, "SC": 1,
+            "BN": bns, "BN bwd": bns}
     launches = train_steps(
         task, cfg, batch, torch.Generator(device=dev).manual_seed(19),
         kernels, dev, "PTv3 training", "loss", want,
         lambda m: f"loss {float(m['loss']):.4f}")
-    return res, {("SC" if k == "SC" else f"{k} xCPE"): launches[k]
-                 for k in want}
+    return res, {(k if k in ("SC", "BN", "BN bwd") else f"{k} xCPE"):
+                 launches[k] for k in want}
 
 
 def _category(kernel_name: str) -> str:
@@ -3165,6 +3323,8 @@ def main(argv=None) -> int:
                     help="solver steps of the completion (default 4)")
     ap.add_argument("--ptv3-only", action="store_true",
                     help="build the kernels and run phase 18 alone")
+    ap.add_argument("--bn-only", action="store_true",
+                    help="build the kernels and run phase 19 alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -3193,15 +3353,22 @@ def main(argv=None) -> int:
     for name, rep in reports.items():
         log_ptxas(name, rep)
 
-    if args.ptv3_only:
+    if args.bn_only:
+        kernels = kernel_table()
+        for k in kernels.values():
+            k.launches = 0
+        res = check_masked_bn("cuda")
+        paths = {"masked bn": {n: k.launches for n, k in kernels.items()}}
+    elif args.ptv3_only:
         res, paths = {}, {}
     else:
         res, paths = run(args.steps)
         # the plan's taps: a second entry point of B1's source
         res["B1"]["taps_launches"] = paths["sampling"]["B1 taps"]
     # ---- 18. PTv3's train step ----
-    ptv3_res, paths["ptv3 training"] = run_ptv3(kernel_table(), "cuda")
-    res.update(ptv3_res)
+    if not args.bn_only:
+        ptv3_res, paths["ptv3 training"] = run_ptv3(kernel_table(), "cuda")
+        res.update(ptv3_res)
     # kernel: (source, TPU kernel it replaces, the path its count is from)
     sources = {
         "A1": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:840",
@@ -3234,25 +3401,37 @@ def main(argv=None) -> int:
         "A3 xCPE": ("conv3_columns_dw", "lidiff_tpu/ops/pallas_conv.py:568",
                     "ptv3 training"),
         "SC": ("serial_codes", "none: the JAX package has no PTv3",
-               "ptv3 training")}
+               "ptv3 training"),
+        "BN": ("masked_bn",
+               "none: XLA's fusion, lidiff_tpu/models/blocks.py:67-100",
+               "refiner training"),
+        "BN bwd": ("masked_bn", "none: XLA's fusion of its transpose",
+                   "refiner training")}
     if args.ptv3_only:
         sources = {k: v for k, v in sources.items()
                    if k.endswith("xCPE") or k == "SC"}
+    if args.bn_only:
+        sources = {k: (*v[:2], "masked bn") for k, v in sources.items()
+                   if k.startswith("BN")}
     for path, names in (
             ("sampling", ("A1", "B1", "B1 taps", "C1", "TG")),
             ("sampling unfused", ("A1", "B1", "B1 taps", "C1", "TG")),
             ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1", "TG")),
             ("gather form", ("A1", "B1")),
             ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1", "TG",
-                          "TG bwd")),
+                          "TG bwd", "BN", "BN bwd")),
             (f"training at batch {DIFF_BATCH}",
-             ("A1", "A2", "A3", "B1", "B1 taps", "C1", "TG", "TG bwd")),
+             ("A1", "A2", "A3", "B1", "B1 taps", "C1", "TG", "TG bwd", "BN",
+              "BN bwd")),
             ("refiner training", ("A1", "A2", "A3", "B1", "B1 taps", "C2",
-                                  "TG", "TG bwd")),
+                                  "TG", "TG bwd", "BN", "BN bwd")),
             (f"refiner training at batch {REFINE_BATCH}",
-             ("A1", "A2", "A3", "B1", "B1 taps", "C2", "TG", "TG bwd")),
+             ("A1", "A2", "A3", "B1", "B1 taps", "C2", "TG", "TG bwd", "BN",
+              "BN bwd")),
             ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1", "TG")),
-            ("ptv3 training", ("A1 xCPE", "A2 xCPE", "A3 xCPE", "SC"))):
+            ("ptv3 training", ("A1 xCPE", "A2 xCPE", "A3 xCPE", "SC", "BN",
+                               "BN bwd")),
+            ("masked bn", ("BN", "BN bwd"))):
         if path not in paths:
             continue
         for n in names:

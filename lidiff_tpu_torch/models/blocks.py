@@ -8,9 +8,10 @@ group count G at call time: G feature sets, group-major in [V, G*C], share
 every parameter. `module.training` takes the place of the JAX modules'
 `train` argument. In eval mode BatchNorm runs with its running statistics
 and, where it follows a conv, is folded into the conv's weights and bias. In
-train mode the conv, BatchNorm over the batch moments and ReLU run one after
-the other, the convs differentiate through `Conv3ColumnsFunction`, and a
-group count above 1 raises: grouped BatchNorm is inference-only.
+train mode the conv runs, then BatchNorm over the batch moments with the
+ReLU (and a residual block's add) as its epilogue (`ops/batchnorm.py`
+`masked_bn_train`); the convs differentiate through `Conv3ColumnsFunction`,
+and a group count above 1 raises: grouped BatchNorm is inference-only.
 `conv_quant` selects the int8 eval conv (kernel A4) for the 27-tap convs
 with a folded BN in eval mode (see `sparse_conv_columns` for the gate).
 `remat` runs a stage under activation checkpointing: its activations are
@@ -29,9 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from lidiff_tpu_torch.ops.batchnorm import masked_bn_train, normalize_plain
 from lidiff_tpu_torch.ops.grid import DownMap, LevelGeom
-from lidiff_tpu_torch.ops.sparse_conv import (masked_moments, sparse_conv,
-                                              sparse_conv_transpose)
+from lidiff_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_transpose
 from lidiff_tpu_torch.utils import prof
 
 
@@ -112,7 +113,11 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid voxels, torch BatchNorm1d semantics: in train
     mode the batch's biased variance normalizes and the running estimates
     take the unbiased one with momentum 0.1 (not while `remat` recomputes
-    the forward); in eval mode the running statistics normalize."""
+    the forward); in eval mode the running statistics normalize. Invalid
+    rows are 0; then `residual` is added and a ReLU applied where the call
+    asks for them. Train mode is `ops/batchnorm.py` `masked_bn_train`: on
+    CUDA tensors one autograd function on hand-written kernels, the
+    epilogue included."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -130,30 +135,28 @@ class MaskedBatchNorm(nn.Module):
         k = self.scale * torch.rsqrt(self.var + self.eps)
         return k, self.bias - self.mean * k
 
-    def forward(self, feats, mask, groups: int):
+    def forward(self, feats, mask, groups: int, relu: bool = False,
+                residual=None):
         if self.training:
             if groups != 1:
                 raise ValueError("grouped BatchNorm is inference-only")
             # the gradient flows through the batch moments
-            mean, var, cnt = masked_moments(feats, mask, self.group)
+            y, mean, var, cnt = masked_bn_train(
+                feats, mask, self.scale, self.bias, self.eps, self.group,
+                relu=relu, residual=residual)
             if not _RECOMPUTING.get():
                 with torch.no_grad():
                     m = self.momentum
                     unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
                     self.mean.copy_((1 - m) * self.mean + m * mean)
                     self.var.copy_((1 - m) * self.var + m * unbiased)
-        else:
-            mean, var = self.mean.repeat(groups), self.var.repeat(groups)
-        scale, bias = self.scale.repeat(groups), self.bias.repeat(groups)
-        if feats.dtype == torch.float32:
-            y = (feats - mean) * torch.rsqrt(var + self.eps) * scale + bias
-        else:
-            # low-precision activations: the affine runs in their dtype
-            # (lidiff_tpu/models/blocks.py:111-121)
-            k = scale * torch.rsqrt(var + self.eps)
-            c = bias - mean * k
-            y = feats * k.to(feats.dtype) + c.to(feats.dtype)
-        return torch.where(mask[:, None], y, 0.0)
+            return y
+        # the running statistics, shared by the groups
+        return normalize_plain(feats, mask, self.mean.repeat(groups),
+                               self.var.repeat(groups),
+                               self.scale.repeat(groups),
+                               self.bias.repeat(groups), self.eps, relu,
+                               residual)
 
 
 def set_bn_group(model: nn.Module, group) -> None:
@@ -179,7 +182,7 @@ class ConvBNReLU(nn.Module):
     def forward(self, feats, kmap, out_mask, groups: int):
         if self.training:
             x = self.SparseConv_0(feats, kmap, out_mask, groups)
-            return F.relu(self.MaskedBatchNorm_0(x, out_mask, groups))
+            return self.MaskedBatchNorm_0(x, out_mask, groups, relu=True)
         k, c = self.MaskedBatchNorm_0.affine()
         return self.SparseConv_0(feats, kmap, out_mask, groups, w_scale=k,
                                  bias=c, relu=True)
@@ -195,7 +198,7 @@ class DeconvBNReLU(nn.Module):
     def forward(self, coarse_feats, parent_idx, tap, fine_mask, groups: int):
         x = self.SparseConvTranspose_0(coarse_feats, parent_idx, tap,
                                        fine_mask, groups)
-        return F.relu(self.MaskedBatchNorm_0(x, fine_mask, groups))
+        return self.MaskedBatchNorm_0(x, fine_mask, groups, relu=True)
 
 
 class ResidualBlock(nn.Module):
@@ -218,9 +221,8 @@ class ResidualBlock(nn.Module):
     def forward(self, feats, kmap, mask, groups: int):
         if self.training:
             x = self.SparseConv_0(feats, kmap, mask, groups)
-            x = F.relu(self.MaskedBatchNorm_0(x, mask, groups))
+            x = self.MaskedBatchNorm_0(x, mask, groups, relu=True)
             x = self.SparseConv_1(x, kmap, mask, groups)
-            x = self.MaskedBatchNorm_1(x, mask, groups)
         else:
             k1, c1 = self.MaskedBatchNorm_0.affine()
             x = self.SparseConv_0(feats, kmap, mask, groups, w_scale=k1,
@@ -235,6 +237,10 @@ class ResidualBlock(nn.Module):
             short = self.MaskedBatchNorm_2(short.reshape(V, -1), mask, groups)
         else:
             short = feats
+        if self.training:
+            # the shortcut's add and the ReLU in BatchNorm's epilogue
+            return self.MaskedBatchNorm_1(x, mask, groups, relu=True,
+                                          residual=short)
         return F.relu(x + short)
 
 

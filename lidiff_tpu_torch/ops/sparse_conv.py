@@ -51,6 +51,8 @@ from dataclasses import dataclass, field
 import torch
 
 from lidiff_tpu_torch.ops import native
+# masked_moments lives with the training BatchNorm; importable from here too
+from lidiff_tpu_torch.ops.batchnorm import masked_moments  # noqa: F401
 from lidiff_tpu_torch.ops.grid import (TILE_ROWS, ColumnKernelMap, DownMap,
                                        KernelMap, TilePlan, tile_plan)
 from lidiff_tpu_torch.utils import prof
@@ -840,31 +842,6 @@ def transpose_gather(y, parent_idx, tap, ok, out_dtype):
         raise ValueError(f"transpose_gather: unsupported device {y.device}")
     out = TransposeGatherFunction.apply(y, parent_idx, tap, ok, out_dtype)
     return prof.annotate_backward(out, "lidiff.grad.transpose_gather")
-
-
-def masked_moments(feats, mask, group=None):
-    """Per-channel mean and biased variance over the valid voxels, and
-    their count (counterpart of lidiff_tpu/ops/sparse_conv.py:434-460).
-    The sums are float32 whatever feats' dtype. With a process `group`
-    (the counterpart of `axis_name`) the count and both sums are summed
-    over its ranks by one all-reduce whose backward all-reduces the
-    gradient, as JAX's psum transposes to a psum, so the gradient flows
-    through the global moments. Then cnt = max(cnt, 1),
-    var = max(s2 / cnt - mean^2, 0)."""
-    mv = mask.to(feats.dtype)
-    fm = feats * mv[:, None]
-    s1 = fm.float().sum(0)
-    s2 = (fm * feats).float().sum(0)
-    cnt = mv.float().sum()
-    if group is not None:
-        from lidiff_tpu_torch.parallel.mesh import all_reduce_sum
-        C = s1.shape[0]
-        sums = all_reduce_sum(torch.cat([cnt[None], s1, s2]), group)
-        cnt, s1, s2 = sums[0], sums[1:C + 1], sums[C + 1:]
-    cnt = cnt.clamp(min=1.0)
-    mean = s1 / cnt
-    var = (s2 / cnt - mean * mean).clamp(min=0.0)
-    return mean, var, cnt
 
 
 def global_pool(feats, mask):

@@ -5,7 +5,7 @@ One process per device, ranks 0 .. world-1: NCCL between cards, gloo on the
 CPU. The parameters are replicated (every rank builds the task from the same
 seed or checkpoint); rank r takes rows [r*B/n, (r+1)*B/n) of the global batch
 (`rank_slice`, which the data loader applies); BatchNorm takes its moments over
-every rank (`ops/sparse_conv.py` `masked_moments` with the group); after the
+every rank (`ops/batchnorm.py` `masked_bn_train` with the group); after the
 backward pass `all_reduce_grads` averages the gradients in one flattened buffer
 (JAX `pmean`), and the BN running statistics and the step's metrics are
 averaged the same way. The rest of the loss is each rank's own on its rows, as

@@ -37,7 +37,14 @@ rounding of dW to the weights' dtype.
 F1 (farthest-point sampling) is held to `fps_plain` on the card and to the
 host C++ copy index for index, on clouds smaller than a block, larger than
 the grid's first cover, with N not a multiple of the block, with
-duplicated points, k = 1 and k >= N."""
+duplicated points, k = 1 and k >= N.
+Training-mode masked BatchNorm (`ops/batchnorm.py`, `csrc/masked_bn.cu`) is
+held to the eager code on the same tensors in float32 and bf16, at widths
+32 to 384, with no, some and all rows valid, for each epilogue (none, ReLU,
+residual + ReLU), at the tolerances stated at each test (sum order; in
+bf16 the closed-form backward); two calls, and a one-rank NCCL group, give
+the same bits; a small refiner step takes the fused path at every
+BatchNorm."""
 
 import math
 
@@ -768,3 +775,226 @@ def test_fps_kernel(dev, case):
     assert got.dtype == torch.int64 and got.device == t.device
     assert torch.equal(got, fps.fps_plain(t, k))
     np.testing.assert_array_equal(got.cpu().numpy(), fps_native(pts, k))
+
+
+# ---------------------------------------------------------------------------
+# Training-mode masked BatchNorm (`ops/batchnorm.py`, csrc/masked_bn.cu)
+# ---------------------------------------------------------------------------
+
+BN_EPILOGUES = {"none": (False, False), "relu": (True, False),
+                "residual_relu": (True, True)}
+BN_MASKS = {"none valid": 0.0, "some valid": 0.6, "all valid": 1.0}
+BN_ROWS = 5003            # not a multiple of any block's rows
+BN_F32_TOL = 1e-4         # float32, x max|ref| (1 + it for out and var):
+                          # the same values summed in other orders over up
+                          # to 5,003 rows
+
+
+def _bn_inputs(dev, dtype, V, C, share, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(V, C, generator=g, device=dev) * 2.0 + 0.5).to(dtype)
+    mask = torch.rand(V, generator=g, device=dev) < share
+    scale = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+    bias = 0.1 * torch.randn(C, generator=g, device=dev)
+    res = torch.randn(V, C, generator=g, device=dev).to(dtype)
+    cot = torch.randn(V, C, generator=g, device=dev).to(dtype)
+    return x, mask, scale, bias, res, cot
+
+
+def _bn_run(x, mask, scale, bias, res, cot, eps, relu, residual, fused,
+            group=None, signs=None):
+    """Output, moments and gradients (x, scale, bias, residual) of one
+    call, through the kernels or the plain eager code on the same tensors;
+    the eager code's ReLU takes `signs` (the kernels' out > 0) where given:
+    moments that differ in the last bit flip the ReLU of an input within
+    rounding of 0, and that element's gradient with it."""
+    from lidiff_tpu_torch.ops import batchnorm as bn
+    xt = x.clone().requires_grad_()
+    st, bt = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+    rt = res.clone().requires_grad_() if residual else None
+    if fused:
+        out, mean, var, cnt = bn.masked_bn_train(
+            xt, mask, st, bt, eps, group, relu=relu, residual=rt)
+    else:
+        mean, var, cnt = bn.masked_moments(xt, mask)
+        out = bn.normalize_plain(xt, mask, mean, var, st, bt, eps,
+                                 relu and signs is None, rt)
+        if relu and signs is not None:
+            out = torch.where(signs, out, 0.0)
+    out.backward(cot)
+    return {"out": out.detach(), "mean": mean.detach(), "var": var.detach(),
+            "cnt": cnt.detach(), "dx": xt.grad, "dscale": st.grad,
+            "dbias": bt.grad, "dres": rt.grad if residual else None}
+
+
+def _close(got, ref, tol, name):
+    err = float((got.float() - ref.float()).abs().max()) if got.numel() \
+        else 0.0
+    assert err <= tol, f"{name}: {err} > {tol}"
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-3])
+@pytest.mark.parametrize("epilogue", list(BN_EPILOGUES))
+@pytest.mark.parametrize("masked", list(BN_MASKS))
+@pytest.mark.parametrize("C", [32, 96, 256, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_bn_fused_matches_plain(dev, dtype, C, masked, epilogue,
+                                       eps):
+    """The fused function against the plain eager code on the card.
+
+    The moments: the count exact; mean and var within BN_F32_TOL (the sums'
+    order). The output: with the fused moments, the plain code's output
+    equals the kernel's bit for bit (the same float32 operations in the
+    same order, or in bf16 the same roundings); with its own moments
+    within BN_F32_TOL of max|out|, and one bf16 ulp of it more in bf16.
+    The gradients in float32: the eager code's autograd, its ReLU on the
+    kernels' signs, within BN_F32_TOL of each gradient's largest (sums in
+    other orders). In bf16 the eager backward is another function: it
+    differentiates the bf16 affine x * k + c, whose k = rstd * scale is
+    rounded to bf16, and rounds its products g * x to bf16, which in a
+    gradient summed over thousands of rows leaves far more than one
+    rounding. The kernels compute the closed form in float32, so in bf16
+    the gradients are held to `masked_bn_backward_plain` on the same bf16
+    tensors and the kernels' output and moments: dx within one bf16 ulp of
+    max|dx| plus BN_F32_TOL, dscale and dbias within BN_F32_TOL of their
+    largest. The residual's gradient is the gated cotangent: equal."""
+    from lidiff_tpu_torch.ops import batchnorm as bn
+    relu, residual = BN_EPILOGUES[epilogue]
+    x, mask, scale, bias, res, cot = _bn_inputs(
+        dev, dtype, BN_ROWS, C, BN_MASKS[masked], C)
+    got = _bn_run(x, mask, scale, bias, res, cot, eps, relu, residual, True)
+    ref = _bn_run(x, mask, scale, bias, res, cot, eps, relu, residual, False,
+                  signs=got["out"] > 0)
+    assert float(got["cnt"]) == float(ref["cnt"]) == max(int(mask.sum()), 1)
+    top_x2 = float((x.float() ** 2).max())
+    _close(got["mean"], ref["mean"], BN_F32_TOL * top_x2 ** 0.5, "mean")
+    _close(got["var"], ref["var"], BN_F32_TOL * (1 + top_x2), "var")
+    same = bn.normalize_plain(x, mask, got["mean"], got["var"], scale, bias,
+                              eps, relu, res if residual else None)
+    assert got["out"].dtype == dtype and torch.equal(got["out"], same)
+    top = float(ref["out"].abs().max())
+    ulp = 2.0 ** -7 * top if dtype == torch.bfloat16 else 0.0
+    _close(got["out"], ref["out"], BN_F32_TOL * (1 + top) + ulp, "out")
+    if dtype == torch.float32:
+        for k in ("dx", "dscale", "dbias"):
+            _close(got[k], ref[k], BN_F32_TOL * float(ref[k].abs().max()), k)
+        if residual:
+            assert torch.equal(got["dres"], ref["dres"])
+        return
+    _, _, rstd, vok, _ = bn.moments_plain(x, mask, eps)
+    dx, dscale, dbias, dres = bn.masked_bn_backward_plain(
+        cot, x, mask, got["out"], got["mean"],
+        torch.rsqrt(got["var"] + eps), vok, got["cnt"], scale, relu,
+        residual)
+    _close(got["dx"], dx, 2.0 ** -7 * float(dx.float().abs().max())
+           + BN_F32_TOL, "dx")
+    for k, want in (("dscale", dscale), ("dbias", dbias)):
+        _close(got[k], want, BN_F32_TOL * float(want.abs().max()) + 1e-6, k)
+    if residual:
+        assert torch.equal(got["dres"], dres)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_bn_repeats_bit_for_bit(dev, dtype):
+    """Two calls on the same inputs, forward and backward, agree bit for
+    bit: no atomics, and the row blocks are fixed by the shape."""
+    x, mask, scale, bias, res, cot = _bn_inputs(dev, dtype, 200_003, 96,
+                                                0.7, 3)
+    a, b = (_bn_run(x, mask, scale, bias, res, cot, 1e-5, True, True, True)
+            for _ in range(2))
+    for k in a:
+        assert torch.equal(_bits(a[k]), _bits(b[k])), k
+
+
+def test_masked_bn_variance_clamp(dev):
+    """Seven valid rows. Channel 0: four of 1 + 2^-11 and three of 1, whose
+    sums are exact in any order and whose one-pass variance rounds to
+    -2^-23: the clamp is active, the variance 0 and the gradient's last
+    term dropped. Channel 1: the constant 1.5, variance exactly 0. Both
+    sides then agree bit for bit on the moments and the output, and the
+    gradients within BN_F32_TOL of max|grad|."""
+    from lidiff_tpu_torch.ops import batchnorm as bn
+    x, mask, scale, bias, res, cot = _bn_inputs(dev, torch.float32, 40, 32,
+                                                0.0, 9)
+    mask[torch.arange(3, 40, 5, device=dev)[:7]] = True
+    rows = torch.nonzero(mask).flatten()
+    x[:, 0] = 1.0
+    x[rows[:4], 0] = 1.0 + 2.0 ** -11
+    x[:, 1] = 1.5
+    _, var, _, vok, _ = bn.moments_plain(x, mask, 1e-3)
+    assert vok[:2].tolist() == [0.0, 1.0] and var[:2].tolist() == [0.0, 0.0]
+    for relu, residual in BN_EPILOGUES.values():
+        got = _bn_run(x, mask, scale, bias, res, cot, 1e-3, relu, residual,
+                      True)
+        ref = _bn_run(x, mask, scale, bias, res, cot, 1e-3, relu, residual,
+                      False, signs=got["out"] > 0)
+        for k in ("mean", "var"):
+            assert torch.equal(got[k][:2], ref[k][:2]), k
+        assert torch.equal(got["out"][:, :2], ref["out"][:, :2])
+        for k in ("dx", "dscale", "dbias"):
+            _close(got[k], ref[k], BN_F32_TOL * float(ref[k].abs().max()), k)
+
+
+def test_masked_bn_one_rank_group(dev):
+    """Through a one-rank NCCL group the forward's sums and the backward's
+    are all-reduced over one rank: every output and gradient equals the
+    call without a group bit for bit."""
+    from lidiff_tpu_torch.parallel import mesh
+    x, mask, scale, bias, res, cot = _bn_inputs(dev, torch.float32, 30_001,
+                                                64, 0.5, 4)
+    group = mesh.init_ranks(0, 1, mesh.file_init_method(), dev)
+    try:
+        a = _bn_run(x, mask, scale, bias, res, cot, 1e-5, True, True, True,
+                    group)
+    finally:
+        mesh.shutdown()
+    b = _bn_run(x, mask, scale, bias, res, cot, 1e-5, True, True, True)
+    for k in a:
+        assert torch.equal(_bits(a[k]), _bits(b[k])), k
+
+
+def test_masked_bn_rejects_bad_input(dev):
+    from lidiff_tpu_torch.ops import batchnorm as bn
+    x, mask, scale, bias, res, _ = _bn_inputs(dev, torch.float32, 10, 8,
+                                              0.5, 0)
+    with pytest.raises(ValueError):
+        bn.masked_bn_train(x.half(), mask, scale, bias, 1e-5)
+    with pytest.raises(ValueError):
+        bn.masked_bn_train(x, mask, scale, bias, 1e-5, residual=res.bfloat16())
+    with pytest.raises(ValueError):
+        bn.masked_bn_train(x, mask.int(), scale, bias, 1e-5)
+    with pytest.raises(ValueError):
+        bn.masked_bn_train(x, mask, scale.cpu(), bias, 1e-5)
+
+
+def test_masked_bn_refiner_step_takes_the_fused_path(dev):
+    """A small float32 refiner step on the card with remat: every
+    training-mode BatchNorm call is fused (49 sites, 47 of them recomputed
+    in the backward pass), none plain, and the kernels launch once a call
+    forward (stats, moments, apply) and once a site backward (grad,
+    dx)."""
+    import chip_smoke
+    from lidiff_tpu_torch import config as cfg_mod
+    from lidiff_tpu_torch.models import refine
+    from lidiff_tpu_torch.ops import batchnorm as bn
+    cfg = cfg_mod.finalize_config(chip_smoke.make_refine_cfg(
+        4000, 0.25, 2, {"full_capacities": [8192] * 5}))
+    clean = np.concatenate([chip_smoke.ring_scan(4000, seed=3),
+                            chip_smoke.ring_scan(4000, seed=4)])
+    gt = np.concatenate([clean, chip_smoke.jittered(clean, 6)], 1)
+    task = refine.RefineTask(cfg, device=dev, compute_dtype=torch.float32,
+                             seed=2, remat=True)
+    kernels = (bn._stats_kernel, bn._moments_kernel, bn._apply_kernel,
+               bn._grad_kernel, bn._dx_kernel)
+    counts, launches = dict(bn.counters), [k.launches for k in kernels]
+    loss, _ = task.loss_fn(
+        {"pcd_noise": torch.from_numpy(chip_smoke.jittered(clean, 5)).to(dev),
+         "pcd_full": torch.from_numpy(gt).to(dev)})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert bn.counters["fused"] - counts["fused"] == 49 + 47
+    assert bn.counters["plain"] == counts["plain"]
+    assert [k.launches - n for k, n in zip(kernels, launches)] == \
+        [96, 96, 96, 49, 49]
+    assert all(torch.isfinite(p.grad).all()
+               for p in task.model.parameters())
