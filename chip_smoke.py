@@ -1,144 +1,95 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`lidiff_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--steps S] [--ptv3-only | --bn-only]
+    python3 chip_smoke.py [--steps S] [--phase NAME]
 
-From the root of a checkout, on a machine with one CUDA card (Hopper:
-the kernels are built for sm_90a):
-  1. builds the hand-written kernels from `lidiff_tpu_torch/csrc/` with nvcc;
-  2. holds each kernel against its plain PyTorch version on the card at the
-     shapes of the sampling path (B1 and C1 exactly: B1 with its plan key
-     at all five levels, the tile plan built from that key against the
-     tensor-op plan on the t ~ T and t ~ 0 pyramids; C1 at all five levels
-     against both conditioning banks over each bank's index, with the
-     index's build time and the rows examined per query; A1 within the
-     stated tolerances), and times both;
-  3. runs one classifier-free completion through `DiffusionTask.sample` at
-     full width (cr=1, out_dim 96, bf16) on a 180k-point synthetic ring
-     scan, G=2 fused cond/uncond, w=6, S steps of the 1000-step linear
-     schedule, counting each kernel's launches in that run (C1: 10 per
-     step, 5 of them the uncond bank's scan, and 2 index builds); then the
-     same completion with `tpu.fuse_classfree: false` (the same weights,
-     offset and noise; the guided pair as two G=1 forwards over one
-     pyramid), its ms per step beside the fused one's, its launches (A1
-     twice per denoiser conv; B1 and C1 unchanged), the mean
-     nearest-neighbour distance between the two clouds, a profiled step,
-     and the float32 unfused guided eps against the fused one at one t;
-  4. checks the output (finite, shape, zero capacity overflow) and a small
-     f32 denoise on the card against the same weights on the CPU;
-  5. holds the conv's backward kernels against their plain versions at the
-     same widths (A3, the weight gradient, over the map's tile plan in
-     bf16, and A2, the feats gradient through the autograd Function), a
-     small f32 training step on the card against the CPU (loss and every
-     parameter's gradient);
-  6. at full width on the same 180k-point scan (batch 1): one float32 step
-     with remat (`tpu.remat`, the stages' activations recomputed in the
-     backward pass) and one without, under torch's deterministic
-     algorithms, held to each other at check_small_train's tolerances;
-     then (bf16 compute, float32 activations) 2 + 3 optimizer steps
-     through `Trainer.train_step` without remat and with it, split into
-     forward, backward and optimizer time, with launch counts (A1 once more
-     per stage conv with remat), peak memory and a profile of one remat
-     step; then 2 + 3 steps at the config's batch of
-     2 (two scans, capacities twice the one-item ones, no overflow);
-  7. runs the `lidiff_tpu_torch.train` CLI on a small synthetic KITTI tree:
-     two steps, then a resume that takes a third;
-  8. holds the chamfer's 1-NN matcher (kernel C2 over its grid index)
-     against kernel C1 on every valid query and against its plain version
-     (rows staged too) and the plain scan on 512 whole tiles, at the
-     refiner's chamfer shape (1.08M x 360k and back), on a two-item batch
-     with invalid rows, and at the sampling shapes, timing it with and
-     without its index beside C1 over its own; holds the chamfer loss
-     (exact and grid) against the CPU, and a small f32 refiner training
-     step on the card against the CPU;
-  9. the same remat comparison and 2 + 3 optimizer steps each way on
-     `RefineTask` at full width (180k jittered points, up_factor 6, a
-     360k-point target), split into model forward, chamfer index passes,
-     the rest of the loss, backward and optimizer; then 2 + 3 steps at the
-     config's batch of 8 (C2 over eight items);
- 10. holds kernel A4 (the int8 eval conv) against its plain version at every
-     sampling width with Cin >= 32, beside A1, with its prologue timed
-     apart, and on integer feats against A1; runs the same completion with
-     `conv_quant` on (the same weights, offset and noise; launch counts, the
-     chamfer distance to the bf16 output) and a small f32 int8 denoise on
-     the card against the CPU;
- 11. runs the completion pipeline at full width through
-     `DiffCompletion.complete_scan` on random-init checkpoints saved as a
-     user's are, bf16 and int8 (on the bf16 run's crop and FPS; both ask
-     for bf16 by `compute_dtype`, which both tasks must get), 4 solver
-     steps and the refiner (180k -> 1.08M points), with the time of each
-     stage, then the metrics of `eval_path` against a synthetic ground
-     truth;
- 12. runs the CLIs on one small synthetic KITTI tree: `train` (two steps,
-     a resume to step 3, `--test`), `train_refine` (sanity validation, two
-     steps, a resume to step 3, `--test`), `map_from_scans`, the pipeline
-     on both trained checkpoints with LIDIFF_CONV_QUANT=int8,
-     `eval_path` on its .ply files and live, and the pipeline once more
-     with LIDIFF_COMPUTE_DTYPE=bfloat16 (both tasks must compute in bf16).
- 13. holds kernel F1 (farthest-point sampling, `ops/fps.py` `fps_cuda`)
-     against `fps_plain` index for index at 18k picks of a 120k-point ring
-     scan, k >= N, duplicated points (ties), N = 100,003 and a few points,
-     and against the host C++ copy at 18k of 120k, timing all three; the
-     pipeline (phase 11) runs its FPS through F1;
- 14. trains at world 1 through a one-rank NCCL group (`parallel/mesh.py`):
-     a small float32 step against the plain `Trainer.train_step` (the
-     collectives a step counted with remat and without), then 2 + 3
-     full-width diffusion steps with remat, with and without the group,
-     each timed with its host syncs and collectives;
- 15. completes two scans through `complete_scans(devices=["cuda:0",
-     "cuda:0"])`, two replicas of the bf16 pipeline on the one card, each
-     held against `complete_scan` with that replica's generator; then the
-     pipeline CLI's multi-card branch on the same two scans as .bin files,
-     with `_devices` giving ["cuda", "cuda"] and
-     LIDIFF_COMPUTE_DTYPE=bfloat16 (an "s/scan" line and .ply files with
-     refined = diff x 6 for each scan, every task in bf16).
- 16. holds the gather-form kernel-map API on the sampling pyramid:
-     `build_kernel_map` against B1's map at every level,
-     `down_kmap_from_pooling` against `build_kernel_map`, the 27-tap gather
-     conv (per tap, fused, G=1 and G=2) against A1 through `sparse_conv` in
-     float32 and bf16, the 8-tap gather down conv against
-     `sparse_conv_down`, and times the bf16 gather beside A1 (phase 2 runs
-     it, after the backward kernels).
- 17. holds TG, the transpose conv's parent-row gather on the card
-     (`csrc/transpose_gather.cu`, forward and backward through autograd),
-     against its plain version bit for bit at the refiner's four up-stage
-     shapes at batch 8, and times it beside the plain version, its bound
-     by bytes and the plain backward's `indexing_backward_kernel` (phase 2
-     runs it, after the backward kernels); phases 3, 6, 9, 10 and 11 count
-     its launches: one forward for each transpose conv of a forward pass
-     (once more with remat), one backward for each in a backward pass.
- 18. on the `ptv3.train` benchmark cell's first batch (12 labelled scans
-     through Pointcept's transforms and Mix3D, about 0.9M voxels), holds
-     the convs of PTv3's xCPE at its two widest shapes, (256, 256) on
-     level 3 and (512, 512) on level 4, over the step's own level maps
-     in bf16 against their plain versions: A1 with its float32 bias, and
-     through autograd A2 (the feats gradient), A3 (the weight gradient,
-     returned in bf16: one rounding more is allowed) and the bias gradient
-     (the masked cotangent's column sums), and
-     times each beside its bound over hit taps; then 2 + 3 optimizer
-     steps of `SegTask` through `Trainer.train_step` (AdamW, OneCycleLR,
-     bf16), the launch counters reset to 0 just before the timed steps:
-     A1 twice a block (xCPE and A2's launch), A2 once, A3 once per 256
-     output channels (24), and the codes kernel once a step; before them, kernel `serial_codes` on the
-     batch's level 0 against the bit loops bit for bit, timed. With
-     `--ptv3-only` the run builds the kernels and runs this phase alone.
- 19. holds training-mode BatchNorm with its ReLU (`ops/batchnorm.py`,
-     kernels `masked_bn_*` in `csrc/masked_bn.cu`) against the eager
-     version on the same float32 tensors at the refiner's shapes at batch
-     8 (L0 1,440,768 x 96, L3 1,152,000 x 256, L4 576,512 x 256, valid
-     rows as in phase 17): the output bit for bit given the kernels'
-     moments and between two calls, the moments and the gradients of x,
-     scale and bias within BN_F32_TOL; and times it forward and backward
-     beside the eager version and its bound by bytes (phase 2 runs it,
-     after TG). Phases 3, 6, 9, 11 and 18 count its launches:
-     `masked_bn_apply` once per BatchNorm of a training forward (once more
-     for those inside a stage with remat), `masked_bn_dx` once per
-     BatchNorm backward, none in eval mode. With `--bn-only` the run
-     builds the kernels and runs this phase alone.
-It prints one line per phase, then a {"kernels": [...]} JSON line, the
-card's name and power limit, and last {"ok": true, "device": {...}}. Any
-failure raises and exits non-zero; so does a run without a CUDA device or
-outside a checkout.
+From the root of a checkout, on a machine with one CUDA card (Hopper: the
+kernels are built for sm_90a), it builds the hand-written kernels from
+`lidiff_tpu_torch/csrc/` with nvcc (printing ptxas's registers, shared
+memory and spills per kernel), then runs its phases in this order;
+`--phase NAME` builds the kernels and runs that phase alone. It holds each
+kernel against its plain PyTorch version at the main paths' shapes and
+times both (the times that PERF.md's kernel table reads), and runs the
+main paths with their checks: launches, finiteness, parameters moved,
+remat, CPU parity, no capacity overflow, collectives, the CLIs. It times
+no whole path: the benchmark (`benchmark/run.py`) does, and a path's
+profile is taken with `lidiff_tpu_torch.utils.prof.trace` (README
+"Tracing").
+
+  kernels   on the sampling path's inputs (a 180k-point synthetic ring scan
+            at res 0.05, cr=1, out_dim 96, no capacity overflow): B1 with
+            its plan key at all five levels, the tile plan from that key
+            against the tensor-op plan on the t ~ T and t ~ 0 pyramids; C1
+            at all five levels against both conditioning banks over each
+            bank's index (the index's build time, the rows examined per
+            query); A1 at every width of the path, G in {1, 2}, float32 and
+            bf16; A4 (the int8 eval conv) at every width with Cin >= 32,
+            its prologue against the Pallas formula, integer feats against
+            A1; C2 at the sampling shapes; A3 (the weight gradient, over
+            the map's tile plan in bf16) and A2 (the feats gradient through
+            autograd); the gather-form kernel-map API (`build_kernel_map`
+            against B1's map, `down_kmap_from_pooling`, the 27-tap gather
+            conv against A1, the 8-tap gather down conv);
+  tg        TG, the transpose conv's parent-row gather, forward and
+            backward, bit for bit at the refiner's four up-stage shapes at
+            batch 8, beside the plain backward's `indexing_backward_kernel`;
+  bn        training-mode BatchNorm with its ReLU (kernels masked_bn_*) at
+            the refiner's shapes at batch 8 against the eager version: the
+            output bit for bit given the kernels' moments and between two
+            calls, the moments and gradients within BN_F32_TOL;
+  fps       F1 (farthest-point sampling) against `fps_plain` index for
+            index in eleven cases and against the host C++ copy at 18k of
+            120k;
+  parity    small float32 runs on the card against the CPU: a guided
+            denoise (float32 and int8 convs), a diffusion training step, a
+            refiner training step on the card's discrete choices
+            (`discrete_choices`), the chamfer loss (exact and grid);
+  sampling  one classifier-free completion through `DiffusionTask.sample`
+            (bf16, G=2 fused, w=6, S steps of the 1000-step linear
+            schedule) with each kernel's launches counted; the same with
+            `tpu.fuse_classfree: false` (launches, the nearest-neighbour
+            distance to the fused cloud, the float32 unfused guided eps
+            against the fused one) and with `conv_quant` (launches, no
+            overflow);
+  training  diffusion training at full width: remat on against off under
+            deterministic algorithms (`compare_remat`), then optimizer
+            steps through `Trainer.train_step` each way and at the
+            config's batch of 2 (launches per step, finite loss and
+            gradients, every parameter and running statistic moved, no
+            overflow);
+  ddp       a one-rank NCCL group (`parallel/mesh.py`): a small float32
+            step against the plain step (collectives with remat and
+            without), full-width steps with and without the group (host
+            syncs and collectives per step);
+  c2        C2 at the refiner's chamfer shapes (1.08M x 360k and back) on
+            the clouds of its eval forward, and on a two-item batch with
+            invalid rows: against C1, its plain version and the plain scan;
+  refiner   the same remat comparison and steps on `RefineTask` (180k
+            jittered points, up_factor 6, a 360k-point target), then at
+            the config's batch of 8;
+  pipeline  `DiffCompletion.complete_scan` on random-init checkpoints, bf16
+            and int8 (launches, refined = diff x 6), the metrics of
+            `eval_path`; `complete_scans` over two replicas on the one card
+            against `complete_scan` with each replica's generator; the
+            pipeline CLI's multi-card branch;
+  clis      on one small synthetic KITTI tree: `train` (two steps, a resume
+            to step 3, `--test`), `train_refine` (sanity validation, two
+            steps, a resume, `--test`), `map_from_scans`, the pipeline CLI
+            with LIDIFF_CONV_QUANT=int8 and with LIDIFF_COMPUTE_DTYPE,
+            `eval_path` on its .ply files and live;
+  ptv3      on the `ptv3.train` benchmark cell's first batch: kernel
+            `serial_codes` against the bit loops; xCPE's convs at (256,
+            256) L3 and (512, 512) L4 in bf16 (A1 with its bias, A2, A3 and
+            the bias gradient through autograd); optimizer steps of
+            `SegTask` with their launches.
+
+Each main path's launches are checked: C1 10 a guided step, A1 once more
+per stage conv and TG's forward once more per transpose conv with remat,
+`masked_bn_apply` once per BatchNorm of a training forward and none in eval
+mode. It prints one line per check, then a {"kernels": [...]} JSON line
+(the kernels of the phases run), the card's name and power limit, and last
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
+does a run without a CUDA device or outside a checkout.
 """
 
 from __future__ import annotations
@@ -155,12 +106,12 @@ import tempfile
 import time
 import types
 
+from benchmark.work import PEAK_BF16, PEAK_BYTES
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PART = 18_000           # partial scan points; the cloud is N_PART x 10
 TILE = 10
-PEAK_BF16 = 989e12        # H100 SXM dense tensor-core bf16, FLOP/s
 PEAK_F32 = 67e12          # H100 SXM float32 outside the tensor cores
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
 SPIN_HZ = 2e9             # spin cycles a second: above the H100's clock, so a
                           # spin of n cycles lasts at least n / SPIN_HZ s
 # A1 widths of the sampling path: (Cin, Cout, pyramid level it runs at)
@@ -214,10 +165,8 @@ PTV3_DB_TOL = 1e-5          # bias gradient: float32 column sums over up to
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 2e-3       # x that parameter's max|grad| ...
 TRAIN_GRAD_ATOL = 1e-4      # ... plus this x the largest max|grad| of all
-TRAIN_WARMUP = 2            # untimed optimizer steps first: the first
-                            # step after them still ran up to 2.5x slower in
-                            # its forward phase with one warm-up step
-TRAIN_STEPS = 3             # timed optimizer steps
+TRAIN_WARMUP = 1            # optimizer steps before the counted ones
+TRAIN_STEPS = 2             # optimizer steps whose launches are counted
 DENOISER_CONVS = 34         # column convs of one denoiser forward
 CONVS_PER_STEP = DENOISER_CONVS + 18    # and the encoder's 18
 REMAT_STATS_TOL = 1e-4      # BN running statistics, remat on vs off on the
@@ -1041,8 +990,7 @@ def check_gather_form(pyr, dev):
     import torch
     from lidiff_tpu_torch.ops import grid, sparse_conv as sc
     kernels = kernel_table()
-    for k in kernels.values():
-        k.launches = 0
+    before = {n: k.launches for n, k in kernels.items()}
     t0 = time.time()
     kmaps = []
     for li, lvl in enumerate(pyr.levels):
@@ -1145,7 +1093,7 @@ def check_gather_form(pyr, dev):
         f" TFLOP/s over all 27 taps; peak memory {peak / 2**30:.2f} GiB above "
         f"the inputs); A1 {a1_ms:.4f} ms, {tap_ms / a1_ms:.2f}x and "
         f"{fused_ms / a1_ms:.2f}x its time ({time.time() - t0:.1f} s)")
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = {n: k.launches - before[n] for n, k in kernels.items()}
     log(f"gather form launches {launches}")
     return launches
 
@@ -1226,24 +1174,20 @@ def check_small_reference(cfg_mod, diffusion, dev, conv_quant=False):
                              "denoise")
 
 
-def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
-                        steps, dev):
-    """The completion of phase 3 with `conv_quant` on: the same weights,
-    offset and noise (the same generator seed). Checks zero overflow, a
-    finite output and the launches (A1 only for the stem's Cin=3 conv: once
-    per step and once per bank); reports ms per step and the chamfer
+def run_int8_completion(task, x_init, part, solver, out_bf16, bf16_launches,
+                        kernels, steps, dev):
+    """The completion of the sampling phase with `conv_quant` on: the same
+    weights, offset and noise (the same generator seed). Checks zero
+    overflow, a finite output and the launches (A1 only for the stem's
+    Cin=3 conv: once per step and once per bank); reports the chamfer
     distance to the bf16 output. Returns the launches."""
     import torch
     from lidiff_tpu_torch.ops import chamfer
-    from lidiff_tpu_torch.utils import prof
-    task.sample(x_init, part, torch.Generator(device=dev).manual_seed(2),
-                solver=solver)
-    _sync(dev)
     for k in kernels.values():
         k.launches = 0
-    out, total_s = prof.block_and_time(
-        task.sample, x_init, part, torch.Generator(device=dev).manual_seed(1),
-        solver=solver)
+    out = task.sample(x_init, part, torch.Generator(device=dev).manual_seed(1),
+                      solver=solver)
+    _sync(dev)
     launches = {n: k.launches for n, k in kernels.items()}
     # per guided step one match per level and bank, the uncond bank's a
     # scan, and TG's forward once per transpose conv; one index per bank
@@ -1253,72 +1197,54 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16, kernels,
     if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
         raise AssertionError(f"completion launches {launches}, expected "
                              f"{want}")
-    _, enc_s = prof.block_and_time(task.encode_banks, part)
-    step_ms = (total_s - enc_s) / steps * 1e3
     ovf = [int(v) for v in task.pyramid_full(out).overflows()]
     cd = float(chamfer.chamfer_distance(out, out_bf16))
-    log(f"int8 completion (conv_quant): {total_s:.3f} s, encoder "
-        f"{enc_s * 1e3:.1f} ms, {step_ms:.1f} ms/step (bf16 "
-        f"{bf16['step_ms']:.1f} ms/step, encoder {bf16['enc_ms']:.1f} ms); "
-        f"launches {launches}; chamfer distance to the bf16 output {cd:.5f} "
-        f"(random weights); overflow at the output {ovf}")
+    log(f"int8 completion (conv_quant): launches {launches}; chamfer "
+        f"distance to the bf16 output {cd:.5f} (random weights); overflow "
+        f"at the output {ovf}")
     if tuple(out.shape) != tuple(out_bf16.shape) or \
             not bool(torch.isfinite(out).all()) or any(ovf):
         raise AssertionError("int8 completion output is not finite, has the "
                              "wrong shape or overflows")
     if dev == "cuda":
-        want = {"A1": steps + 2,
-                "A4": bf16["launches"]["A1"] - steps - 2,
-                "B1": bf16["launches"]["B1"], "C1": bf16["launches"]["C1"],
-                "TG": bf16["launches"]["TG"], "TG bwd": 0}
+        want = {"A1": steps + 2, "A4": bf16_launches["A1"] - steps - 2,
+                **{n: bf16_launches[n] for n in ("B1", "C1", "TG")},
+                "TG bwd": 0}
         for n, c in want.items():
             if launches[n] != c:
                 raise AssertionError(f"int8 completion: kernel {n}: "
                                      f"{launches[n]} launches, expected {c}")
-        banks = task.encode_banks(part)
-        t_first = int(solver.timesteps[0])
-        profile_step(lambda: task.denoise_pair(x_init + torch.randn(
-            x_init.shape, generator=torch.Generator(device=dev).manual_seed(9),
-            device=dev), *banks, t_first),
-            f"one int8 guided sampling step (t={t_first})")
     return launches
 
 
 def run_unfused_completion(cfg, x_init, part, noisy, solver, out_fused,
-                           fused, kernels, steps, dev):
-    """The completion of phase 3 with `tpu.fuse_classfree` off, on a task
-    of the same seed (the same weights) and the same offset and noise: the
-    guided pair as two G=1 forwards over one pyramid a step. Checks the
-    launches against the fused run's (A1 twice per denoiser conv, the
-    stem's included, so DENOISER_CONVS more a step, the encoder's
-    unchanged; B1 and its plan taps unchanged, one pyramid a step; C1
-    unchanged, 5 matches against each bank), zero overflow and a finite
-    output; reports ms per step beside the fused run's and the mean
-    nearest-neighbour distance between the two clouds each way, which must
-    lie within SCANS_NN_TOL (the limit of two sound runs of one
-    computation); profiles one unfused step; then holds the float32
-    unfused guided eps against the fused one at the first step's t, within
+                           fused_launches, kernels, steps, dev):
+    """The completion of the sampling phase with `tpu.fuse_classfree` off,
+    on a task of the same seed (the same weights) and the same offset and
+    noise: the guided pair as two G=1 forwards over one pyramid a step.
+    Checks the launches against the fused run's (A1 twice per denoiser
+    conv, the stem's included, so DENOISER_CONVS more a step, the
+    encoder's unchanged; B1 and its plan taps unchanged, one pyramid a
+    step; C1 unchanged, 5 matches against each bank), zero overflow and a
+    finite output, and that the mean nearest-neighbour distance between
+    the two clouds each way lies within SCANS_NN_TOL (the limit of two
+    sound runs of one computation); then holds the float32 unfused guided
+    eps against the fused one at the first step's t, within
     UNFUSED_EPS_TOL of max|eps|. Returns the launches."""
     import torch
     from scipy.spatial import cKDTree
     from lidiff_tpu_torch.models import diffusion
-    from lidiff_tpu_torch.utils import prof
     ucfg = dict(cfg, tpu=dict(cfg["tpu"], fuse_classfree=False))
     task = diffusion.DiffusionTask(ucfg, device=dev,
                                    compute_dtype=torch.bfloat16, seed=0)
     if task.fuse_classfree:
         raise AssertionError("tpu.fuse_classfree: false was not read")
-    task.sample(x_init, part, torch.Generator(device=dev).manual_seed(2),
-                solver=solver)
-    _sync(dev)
     for k in kernels.values():
         k.launches = 0
-    out, total_s = prof.block_and_time(
-        task.sample, x_init, part, torch.Generator(device=dev).manual_seed(1),
-        solver=solver)
+    out = task.sample(x_init, part, torch.Generator(device=dev).manual_seed(1),
+                      solver=solver)
+    _sync(dev)
     launches = {n: k.launches for n, k in kernels.items()}
-    _, enc_s = prof.block_and_time(task.encode_banks, part)
-    step_ms = (total_s - enc_s) / steps * 1e3
     ovf = [int(v) for v in task.pyramid_full(out).overflows()]
     a, b = out[0].float().cpu().numpy(), out_fused[0].float().cpu().numpy()
     nn = max(float(cKDTree(b).query(a)[0].mean()),
@@ -1327,11 +1253,8 @@ def run_unfused_completion(cfg, x_init, part, noisy, solver, out_fused,
     a1_step = (launches["A1"] - 2 * (CONVS_PER_STEP - DENOISER_CONVS)) / steps
     b1_step = (launches["B1"] - 2 * task.num_levels) / steps
     log(f"unfused completion (tpu.fuse_classfree false, two G=1 forwards a "
-        f"step): {total_s:.3f} s, encoder {enc_s * 1e3:.1f} ms, "
-        f"{step_ms:.1f} ms/step against fused {fused['step_ms']:.1f} "
-        f"({step_ms / fused['step_ms']:.3f}x); launches {launches}, per "
-        f"step A1 {a1_step:g} B1 {b1_step:g} C1 "
-        f"{launches['C1'] / steps:g}; mean "
+        f"step): launches {launches}, per step A1 {a1_step:g} B1 "
+        f"{b1_step:g} C1 {launches['C1'] / steps:g}; mean "
         f"nearest-neighbour distance to the fused cloud {nn:.6f} m (limit "
         f"{SCANS_NN_TOL} m); overflow at the output {ovf}")
     if tuple(out.shape) != tuple(out_fused.shape) or \
@@ -1342,19 +1265,14 @@ def run_unfused_completion(cfg, x_init, part, noisy, solver, out_fused,
         raise AssertionError("the unfused completion lies beyond "
                              "SCANS_NN_TOL of the fused one")
     if dev == "cuda":
-        want = {"A1": fused["launches"]["A1"] + DENOISER_CONVS * steps,
-                "TG": 2 * fused["launches"]["TG"], "TG bwd": 0,
-                **{n: fused["launches"][n]
+        want = {"A1": fused_launches["A1"] + DENOISER_CONVS * steps,
+                "TG": 2 * fused_launches["TG"], "TG bwd": 0,
+                **{n: fused_launches[n]
                    for n in ("B1", "B1 taps", "C1", "C1 scan", "C1 index")}}
         for n, c in want.items():
             if launches[n] != c:
                 raise AssertionError(f"unfused completion: kernel {n}: "
                                      f"{launches[n]} launches, expected {c}")
-        banks = task.encode_banks(part)
-        t_first = int(solver.timesteps[0])
-        profile_step(lambda: task.denoise_pair(noisy, *banks, t_first),
-                     f"one unfused guided sampling step (t={t_first})")
-        del banks
     del task, out
     # float32: the unfused guided eps against the fused one at one t
     task = diffusion.DiffusionTask(cfg, device=dev,
@@ -1374,18 +1292,14 @@ def run_unfused_completion(cfg, x_init, part, noisy, solver, out_fused,
     return launches
 
 
-def run(steps: int, dev: str = "cuda"):
-    """Phases 2-12 on `dev`; returns (kernel results, {path: launches} for
-    the sampling, unfused sampling, int8 sampling, gather form, training,
-    refiner training and pipeline paths)."""
+def sampling_inputs(steps: int, dev: str):
+    """The sampling path's config (180k points, res 0.05, `steps` solver
+    steps), a bf16 task of seed 0, its partial scan, the anchors x_init
+    (the scan tiled) and the first step's cloud (x_init plus unit noise);
+    the pyramids of that cloud and of the scan, held to zero overflow."""
     import torch
     from lidiff_tpu_torch import config as cfg_mod
-    from lidiff_tpu_torch.diffusion.dpm_solver import make_dpm_solver
     from lidiff_tpu_torch.models import diffusion
-    from lidiff_tpu_torch.ops import grid, knn, sparse_conv
-    from lidiff_tpu_torch.utils import prof
-
-    # ---- inputs of the sampling path (180k points, res 0.05) ----
     # The synthetic rings merge less at the coarse levels than the scans the
     # default capacity table was measured on (lidiff_tpu/config.py), so
     # every level gets the full point count: no voxel is dropped.
@@ -1399,7 +1313,6 @@ def run(steps: int, dev: str = "cuda"):
     noisy = x_init + torch.randn(x_init.shape, generator=gen, device=dev)
     pyr = task.pyramid_full(noisy)            # the t ~ T regime
     pyr_c = task.pyramid_part(part)
-    pyr_u = task.pyramid_part_tiny(torch.zeros_like(part))
     ovf = [int(v) for v in pyr.overflows()]
     ovf_c = [int(v) for v in pyr_c.overflows()]
     log(f"capacities full {cfg['tpu']['full_capacities']} part "
@@ -1408,17 +1321,28 @@ def run(steps: int, dev: str = "cuda"):
         f"part {ovf_c}")
     if any(ovf) or any(ovf_c):
         raise AssertionError("capacity overflow on the sampling input")
+    return types.SimpleNamespace(cfg=cfg, task=task, part=part,
+                                 x_init=x_init, noisy=noisy, pyr=pyr,
+                                 pyr_c=pyr_c)
 
-    # ---- 2. kernels against their plain versions ----
+
+def phase_kernels(steps: int, dev: str):
+    """The kernels against their plain versions on the sampling path's
+    inputs. Returns (kernel results, {"gather form": launches})."""
+    import torch
+    from lidiff_tpu_torch import config as cfg_mod
+    from lidiff_tpu_torch.ops import grid, knn, sparse_conv
+    s = sampling_inputs(steps, dev)
+    pyr, task, x_init = s.pyr, s.task, s.x_init
+    pyr_u = task.pyramid_part_tiny(torch.zeros_like(s.part))
     # C1 also at the cond bank the default capacity table gives (11264
     # rows at 180k points): the enlarged bank cut to it, which drops the
     # highest keys as a capacity overflow does
-    cond = pyr_c.levels[-1].geom
+    cond = s.pyr_c.levels[-1].geom
     cap = cfg_mod.derive_capacities(N_PART, clean=True)[-1]
     cond_default = types.SimpleNamespace(coords=cond.coords[:cap].contiguous(),
                                          mask=cond.mask[:cap].contiguous(),
                                          capacity=cap)
-    t0 = time.time()
     stats, b1_plan_ms = plan_stats(pyr, dev, "t~T")
     plan_stats(task.pyramid_full(x_init + 0.01 * torch.randn(
         x_init.shape, generator=torch.Generator(device=dev).manual_seed(10),
@@ -1436,33 +1360,36 @@ def run(steps: int, dev: str = "cuda"):
         check_c2_case(knn, f"sampling, L0 queries x {name} bank", g0.coords,
                       g0.mask, bank.coords, bank.mask, 1)
     res.update(check_backward(pyr, sparse_conv, dev))
-    res.update(check_transpose_gather(dev))
-    res.update(check_masked_bn(dev))
-    gather_launches = check_gather_form(pyr, dev)
-    res["F1"] = check_f1(dev)
-    log(f"kernel checks: {time.time() - t0:.1f} s")
+    return res, {"gather form": check_gather_form(pyr, dev)}
+
+
+def phase_parity(steps: int, dev: str):
+    """Small float32 runs on the card against the CPU."""
+    from lidiff_tpu_torch import config as cfg_mod
+    from lidiff_tpu_torch.models import diffusion
     check_small_reference(cfg_mod, diffusion, dev)
     check_small_reference(cfg_mod, diffusion, dev, conv_quant=True)
     check_small_train(cfg_mod, diffusion, dev)
-    check_c2_case(knn, "two items, invalid rows", *batched_match_inputs(dev),
-                  2)
     check_chamfer(dev)
     check_small_refine_train(cfg_mod, dev)
-    del pyr, pyr_c, pyr_u, g0
+    return {}, {}
 
-    # ---- 3. the main path: one completion ----
+
+def phase_sampling(steps: int, dev: str):
+    """One completion, then the same unfused and with the int8 convs.
+    Returns ({}, their launches)."""
+    import torch
+    from lidiff_tpu_torch.diffusion.dpm_solver import make_dpm_solver
+    from lidiff_tpu_torch.models import diffusion
+    s = sampling_inputs(steps, dev)
     kernels = kernel_table()
     solver = make_dpm_solver("linear", 1000, steps, 3.5e-5, 0.007, device=dev)
-    # a first completion warms the allocator and the library kernels'
-    # first-use set-up; the second is the one timed and counted
-    task.sample(x_init, part, torch.Generator(device=dev).manual_seed(2),
-                solver=solver)
-    _sync(dev)
     for k in kernels.values():
         k.launches = 0
-    out, total_s = prof.block_and_time(
-        task.sample, x_init, part, torch.Generator(device=dev).manual_seed(1),
-        solver=solver)
+    out = s.task.sample(s.x_init, s.part,
+                        torch.Generator(device=dev).manual_seed(1),
+                        solver=solver)
+    _sync(dev)
     launches = {n: k.launches for n, k in kernels.items()}
     # per guided step one match per level and bank, the uncond bank's a
     # scan; one index per bank and completion
@@ -1471,104 +1398,72 @@ def run(steps: int, dev: str = "cuda"):
     if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
         raise AssertionError(f"completion launches {launches}, expected "
                              f"{want}")
-    _, enc_s = prof.block_and_time(task.encode_banks, part)
-    step_ms = (total_s - enc_s) / steps * 1e3
     log(f"completion: {steps} steps of the 1000-step linear schedule, "
-        f"{N_PART * TILE} points, bf16, G=2, w=6: {total_s:.3f} s, encoder "
-        f"{enc_s * 1e3:.1f} ms, {step_ms:.1f} ms/step; launches {launches}")
-
-    if dev == "cuda":
-        # at the first step's cloud: anchors plus unit noise
-        banks = task.encode_banks(part)
-        t_first = int(solver.timesteps[0])
-        profile_step(lambda: task.denoise_pair(noisy, *banks, t_first),
-                     f"one guided sampling step (t={t_first})")
-        del banks
-
-    # ---- 4. the output ----
+        f"{N_PART * TILE} points, bf16, G=2, w=6; launches {launches}")
     if tuple(out.shape) != (1, N_PART * TILE, 3) or \
             not bool(torch.isfinite(out).all()):
         raise AssertionError("completion output is not finite or has the "
                              "wrong shape")
-    del task
-    # ---- 3. the same completion with the guided pair unfused ----
-    unfused_launches = run_unfused_completion(
-        cfg, x_init, part, noisy, solver, out,
-        {"step_ms": step_ms, "launches": launches}, kernels, steps, dev)
-    # ---- 10. the same completion with the int8 convs ----
-    task_q = diffusion.DiffusionTask(cfg, device=dev,
+    del s.task, s.pyr, s.pyr_c
+    unfused = run_unfused_completion(s.cfg, s.x_init, s.part, s.noisy, solver,
+                                     out, launches, kernels, steps, dev)
+    task_q = diffusion.DiffusionTask(s.cfg, device=dev,
                                      compute_dtype=torch.bfloat16, seed=0,
                                      conv_quant=True)
-    int8_launches = run_int8_completion(
-        task_q, x_init, part, solver, out, {
-            "step_ms": step_ms, "enc_ms": enc_s * 1e3, "launches": launches},
-        kernels, steps, dev)
-    del task_q, out
+    int8 = run_int8_completion(task_q, s.x_init, s.part, solver, out,
+                               launches, kernels, steps, dev)
+    return {}, {"sampling": launches, "sampling unfused": unfused,
+                "int8 sampling": int8}
 
-    # ---- 6. the training path at full width ----
-    train_launches = run_training(cfg, kernels, x_init, part, dev)
-    batch_launches = run_training_batch(cfg, kernels, dev)
-    # ---- 14. data parallelism at world 1 ----
+
+def phase_training(steps: int, dev: str):
+    s = sampling_inputs(steps, dev)
+    cfg, x_init, part = s.cfg, s.x_init, s.part
+    del s
+    kernels = kernel_table()
+    return {}, {"training": run_training(cfg, kernels, x_init, part, dev),
+                f"training at batch {DIFF_BATCH}":
+                    run_training_batch(cfg, kernels, dev)}
+
+
+def phase_ddp(steps: int, dev: str):
+    from lidiff_tpu_torch import config as cfg_mod
+    from lidiff_tpu_torch.models import diffusion
+    s = sampling_inputs(steps, dev)
+    cfg, x_init, part = s.cfg, s.x_init, s.part
+    del s
     run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev)
-    # ---- 8, 9. the refiner at full width ----
-    c2_res, refine_launches = run_refine(cfg, kernels, dev)
-    res.update(c2_res)
-    refine_batch_launches = run_refine_batch(cfg, kernels, dev)
-    # ---- 11. the pipeline at full width ----
-    pipe_launches = run_pipeline(cfg, kernels, steps, dev)
-    # ---- 7, 10, 12. the CLIs on one small tree ----
+    return {}, {}
+
+
+def phase_pipeline(steps: int, dev: str):
+    cfg = sampling_inputs(steps, dev).cfg
+    return {}, {"pipeline": run_pipeline(cfg, kernel_table(), steps, dev)}
+
+
+def phase_clis(steps: int, dev: str):
     with tempfile.TemporaryDirectory() as tree:
         make_kitti_tree(tree)
         run_cli(dev, tree)
         run_refine_cli(dev, tree)
-        run_eval_clis(dev, tree, kernels)
-    return res, {"sampling": launches, "sampling unfused": unfused_launches,
-                 "int8 sampling": int8_launches,
-                 "gather form": gather_launches,
-                 "training": train_launches,
-                 f"training at batch {DIFF_BATCH}": batch_launches,
-                 "refiner training": refine_launches,
-                 f"refiner training at batch {REFINE_BATCH}":
-                     refine_batch_launches,
-                 "pipeline": pipe_launches}
+        run_eval_clis(dev, tree, kernel_table())
+    return {}, {}
 
 
 def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
-                loss_key: str, want: dict, describe, instrument=None,
-                draws=None, profile: bool = True):
+                loss_key: str, want: dict, describe, draws=None):
     """TRAIN_WARMUP + TRAIN_STEPS optimizer steps through
-    Trainer.train_step, each timed step split by device events into forward
-    (the task's loss_fn), backward and optimizer. Checks a finite loss, a
-    finite gradient for every parameter, that every parameter and running
-    statistic moved and, on the card, the launches per step in `want`;
-    then profiles one more step (`profile`). `describe(metrics)` words a
-    step's metrics; `instrument(mark)` may set further marks inside the
-    forward phase and returns (undo, split) with split(marks of one step,
-    elapsed) wording them; `draws` go to every step's loss_fn. The peak
-    memory counts from here (the task built). Returns the kernels'
-    launches over the timed steps."""
+    Trainer.train_step, the launches counted over the last TRAIN_STEPS.
+    Checks a finite loss, a finite gradient for every parameter, that
+    every parameter and running statistic moved and, on the card, the
+    launches per step in `want`. `describe(metrics)` words a step's
+    metrics; `draws` go to every step's loss_fn. Returns the kernels'
+    launches over the counted steps."""
     import torch
     from lidiff_tpu_torch.training.trainer import Trainer
-    cuda = dev == "cuda"
     draws = draws or {}
     model = task.model
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    marks = []
-
-    def mark(name):
-        if cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        else:
-            ev = time.time()
-        marks.append((name, ev))
-
-    def elapsed(a, b):
-        return a.elapsed_time(b) if cuda else (b - a) * 1e3
-
     with tempfile.TemporaryDirectory() as exp_dir:
         trainer = Trainer(task, cfg, exp_dir)
         for _ in range(TRAIN_WARMUP):
@@ -1576,70 +1471,29 @@ def train_steps(task, cfg, batch, gen, kernels, dev, what: str,
         _sync(dev)
         for k in kernels.values():
             k.launches = 0
-        # a device event where each phase of a step has been enqueued: the
-        # loss function's return, and the optimizer's step hooks
-        loss_fn = task.loss_fn
-
-        def timed_loss_fn(*a, **kw):
-            out = loss_fn(*a, **kw)
-            mark("forward")
-            return out
-
-        task.loss_fn = timed_loss_fn
-        hooks = [trainer.optimizer.register_step_pre_hook(
-                     lambda *_: mark("backward")),
-                 trainer.optimizer.register_step_post_hook(
-                     lambda *_: mark("optimizer"))]
-        undo, split = instrument(mark) if instrument else (None, None)
-        losses = []
-        try:
-            for _ in range(TRAIN_STEPS):
-                mark("start")
-                losses.append(trainer.train_step(batch, gen, **draws))
-            _sync(dev)
-        finally:
-            del task.loss_fn              # back to the class's method
-            for h in hooks:
-                h.remove()
-            if undo:
-                undo()
-        launches = {n: k.launches for n, k in kernels.items()}
-        per_step = {n: c / TRAIN_STEPS for n, c in launches.items() if c}
-        starts = [i for i, (n, _) in enumerate(marks) if n == "start"]
-        for i, s in enumerate(starts):
-            step = marks[s:starts[i + 1] if i + 1 < len(starts) else None]
-            at = dict(step)
-            fwd, bwd, opt = (elapsed(at[a], at[b]) for a, b in (
-                ("start", "forward"), ("forward", "backward"),
-                ("backward", "optimizer")))
-            log(f"{what} step {i + 1}: {fwd + bwd + opt:.1f} ms (forward "
-                f"{fwd:.1f}{split(step, elapsed) if split else ''}, backward "
-                f"{bwd:.1f}, optimizer {opt:.1f}); {describe(losses[i])}")
-        total = elapsed(marks[0][1], marks[-1][1]) / TRAIN_STEPS
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
-        log(f"{what}: {total:.1f} ms/step over {TRAIN_STEPS} steps; launches "
-            f"per step {per_step}; peak device memory {peak:.2f} GiB")
-
-        # ---- checks ----
-        if not all(math.isfinite(float(m[loss_key])) for m in losses):
-            raise AssertionError(f"{what}: the loss is not finite")
-        for n, p in model.named_parameters():
-            if p.grad is None or not bool(torch.isfinite(p.grad).all()):
-                raise AssertionError(f"{what}: no finite gradient for {n}")
-        same = [k for k, v in model.state_dict().items()
-                if torch.equal(v, before[k])]
-        if same:
-            raise AssertionError(f"{what}: {len(same)} parameters or running "
-                                 f"statistics did not change: {same[:5]}")
-        if cuda:
-            for n, c in want.items():
-                if per_step.get(n, 0) != c:
-                    raise AssertionError(
-                        f"{what}: kernel {n}: {per_step.get(n, 0)} launches "
-                        f"per step, expected {c}")
-            if profile:
-                profile_step(lambda: trainer.train_step(batch, gen, **draws),
-                             f"one {what} step")
+        losses = [trainer.train_step(batch, gen, **draws)
+                  for _ in range(TRAIN_STEPS)]
+        _sync(dev)
+    launches = {n: k.launches for n, k in kernels.items()}
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items() if c}
+    log(f"{what}: {'; '.join(describe(m) for m in losses)}; launches per "
+        f"step {per_step}")
+    if not all(math.isfinite(float(m[loss_key])) for m in losses):
+        raise AssertionError(f"{what}: the loss is not finite")
+    for n, p in model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"{what}: no finite gradient for {n}")
+    same = [k for k, v in model.state_dict().items()
+            if torch.equal(v, before[k])]
+    if same:
+        raise AssertionError(f"{what}: {len(same)} parameters or running "
+                             f"statistics did not change: {same[:5]}")
+    if dev == "cuda":
+        for n, c in want.items():
+            if per_step.get(n, 0) != c:
+                raise AssertionError(
+                    f"{what}: kernel {n}: {per_step.get(n, 0)} launches "
+                    f"per step, expected {c}")
     return launches
 
 
@@ -1716,8 +1570,8 @@ def compare_remat(make_task, batch, draws, what: str):
     and one with it: fresh tasks of one seed (`make_task(remat)`, float32
     compute), the same batch and `draws`, under
     `torch.use_deterministic_algorithms` (the scatter-adds sorted: with the
-    card's atomic adds, two runs of one step already differ at this size;
-    scripts/torch_remat_diff.py measures both ways). The remat run is held
+    card's atomic adds, two runs of one step already differ at this size).
+    The remat run is held
     to the other at check_small_train's tolerances: the loss within
     TRAIN_LOSS_RTOL, every gradient within TRAIN_GRAD_TOL of its max|grad|
     plus TRAIN_GRAD_ATOL of the largest, the running statistics within
@@ -1756,9 +1610,8 @@ def compare_remat(make_task, batch, draws, what: str):
 
 def run_training(cfg, kernels, x_init, part, dev):
     """Diffusion training at full width, batch 1: one step with remat off
-    and on compared (`compare_remat`), then the timed steps of each, the
-    remat run last. Returns the remat run's launches over its timed
-    steps."""
+    and on compared (`compare_remat`), then the steps of each, the remat
+    run last. Returns the remat run's launches over its counted steps."""
     import torch
     from lidiff_tpu_torch.models import diffusion
 
@@ -1778,15 +1631,14 @@ def run_training(cfg, kernels, x_init, part, dev):
     for remat in (False, True):
         task = make_task(remat)
         launches = diffusion_steps(task, cfg, batch, kernels, dev,
-                                      "training" + ("" if remat else
-                                                    ", remat off"),
-                                      remat, profile=remat)
+                                   "training" + ("" if remat else
+                                                 ", remat off"), remat)
         del task
     return launches
 
 
 def diffusion_steps(task, cfg, batch, kernels, dev, what: str, remat: bool,
-                    profile: bool = True, draws=None):
+                    draws=None):
     """`train_steps` of the diffusion task, with the launches per step that
     its convs give (A1 once more for each stage conv with remat) and no
     overflow."""
@@ -1805,7 +1657,7 @@ def diffusion_steps(task, cfg, batch, kernels, dev, what: str, remat: bool,
         {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
          "A1": 2 * CONVS_PER_STEP - 2 + extra, "C1": 5, "C1 index": 1,
          "TG": ups * (2 if remat else 1), "TG bwd": ups},
-        describe, draws=draws, profile=profile)
+        describe, draws=draws)
     if any(overflow):
         raise AssertionError(f"{what}: capacity overflow on the input")
     return out
@@ -1841,8 +1693,7 @@ def run_training_batch(cfg, kernels, dev, n: int = DIFF_BATCH):
         f"{bcfg['tpu']['part_capacities']}, remat on, the coin held off")
     return diffusion_steps(
         task, bcfg, {"pcd_full": part.repeat(1, TILE, 1), "pcd_part": part},
-        kernels, dev, f"training at batch {n}", True, profile=False,
-        draws={"drop": False})
+        kernels, dev, f"training at batch {n}", True, draws={"drop": False})
 
 
 def _host_syncs(fn, stacks: bool = False):
@@ -1915,15 +1766,13 @@ def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
     within check_small_train's tolerances, with its collectives counted
     with remat on and off (remat adds one all-reduce per BatchNorm inside
     a stage: the recompute's moments); then TRAIN_WARMUP + TRAIN_STEPS
-    full-width diffusion steps (remat on) without and with the group, each
-    step timed by `prof.block_and_time` (host clock to the card's finish)
-    with its host syncs (at most 2 a step, every one counted: the
-    recompute adds none) and collectives."""
+    full-width diffusion steps (remat on) without and with the group, the
+    last TRAIN_STEPS with their host syncs (at most 2 a step, every one
+    counted: the recompute adds none) and collectives."""
     import numpy as np
     import torch
     from lidiff_tpu_torch.parallel import mesh
     from lidiff_tpu_torch.training.trainer import Trainer
-    from lidiff_tpu_torch.utils import prof
     backend = "NCCL" if dev == "cuda" else "gloo"
     group = mesh.init_ranks(0, 1, mesh.file_init_method(), dev)
     try:
@@ -1984,10 +1833,8 @@ def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
                                  "the plain step")
 
         # full width: plain, then distributed, one task at a time
-        times = {}
+        rows = {}
         for name, g in (("plain", None), ("distributed", group)):
-            if dev == "cuda":
-                torch.cuda.empty_cache()
             task = diffusion.DiffusionTask(cfg, device=dev, seed=0,
                                            compute_dtype=torch.bfloat16,
                                            group=g)
@@ -1997,29 +1844,24 @@ def run_ddp(cfg, cfg_mod, diffusion, x_init, part, dev):
                 trainer = Trainer(task, cfg, exp, group=g)
                 for _ in range(TRAIN_WARMUP):
                     trainer.train_step(full, gen)
-                # the step's host syncs counted inside, the wait for the
-                # card's finish outside
-                steps = [prof.block_and_time(_collectives, lambda: _host_syncs(
-                    lambda: trainer.train_step(full, gen), stacks=True))
-                    for _ in range(TRAIN_STEPS)]
-            times[name] = [(s * 1e3, n, c, float(m["loss"]))
-                           for ((m, n), c), s in steps]
-            if dev == "cuda" and g is not None:
-                profile_step(lambda: trainer.train_step(full, gen),
-                             "one world-1 distributed training step")
+                # the step's host syncs and collectives counted inside it
+                rows[name] = [(n, c, float(m["loss"])) for (m, n), c in (
+                    _collectives(lambda: _host_syncs(
+                        lambda: trainer.train_step(full, gen), stacks=True))
+                    for _ in range(TRAIN_STEPS))]
             del task, trainer
-        for name, rows in times.items():
+        for name, steps in rows.items():
             log(f"world-1 training step at full width, remat on, {name}: "
-                + "; ".join(f"{ms:.1f} ms, {sum(n.values())} host syncs "
-                            f"{dict(n)}, {c} collectives, loss {loss:.4f}"
-                            for ms, n, c, loss in rows))
-        if not all(math.isfinite(r[3]) for rows in times.values()
-                   for r in rows):
+                + "; ".join(f"{sum(n.values())} host syncs {dict(n)}, {c} "
+                            f"collectives, loss {loss:.4f}"
+                            for n, c, loss in steps))
+        if not all(math.isfinite(r[2]) for steps in rows.values()
+                   for r in steps):
             raise AssertionError("world-1 training: a loss is not finite")
         # every sync of the step counts: the two are the bank index's build
         # (ops/knn.py); the recompute adds none
-        if any(sum(r[1].values()) > 2 for rows in times.values()
-               for r in rows):
+        if any(sum(r[0].values()) > 2 for steps in rows.values()
+               for r in steps):
             raise AssertionError("world-1 training: more than 2 host syncs "
                                  "in a step")
     finally:
@@ -2159,8 +2001,7 @@ def check_c2_case(knn, label, q, qm, r, rm, n_batch, c1_iters: int = 10):
 def check_chamfer(dev):
     """The chamfer loss on the card: grid against exact on clouds small
     enough for the exact path, the card against the CPU for both, finite
-    gradients to both clouds; and the two ways to write the gather whose
-    backward adds 1.08M rows into 360k, timed."""
+    gradients to both clouds."""
     import torch
     from lidiff_tpu_torch.ops import chamfer
     x = torch.from_numpy(ring_scan(40_000, seed=11))
@@ -2191,21 +2032,6 @@ def check_chamfer(dev):
         "relative; gradients finite")
     if not rel <= CHAMFER_GRID_RTOL:
         raise AssertionError("the grid chamfer is off the exact one")
-    if dev != "cuda":
-        return
-    # forward + backward of a [rows, 3] gather at the refiner's sizes
-    gen = torch.Generator(device=dev).manual_seed(13)
-    n_up, n_gt = N_PART * TILE * REFINE_UP, 2 * N_PART * TILE
-    for rows, n_idx in ((n_gt, n_up), (n_up, n_gt)):
-        pts = torch.randn(rows, 3, generator=gen, device=dev,
-                          requires_grad=True)
-        idx = torch.randint(0, rows, (n_idx,), generator=gen, device=dev)
-        cot = torch.randn(n_idx, 3, generator=gen, device=dev)
-        t_sel = _time_ms(lambda: torch.autograd.grad(
-            pts.index_select(0, idx), pts, cot))
-        t_adv = _time_ms(lambda: torch.autograd.grad(pts[idx], pts, cot))
-        log(f"gather of {n_idx} rows from {rows}, forward + backward: "
-            f"index_select {t_sel:.4f} ms, points[idx] {t_adv:.4f} ms")
 
 
 def make_refine_cfg(num_points: int, cr: float, up_factor: int,
@@ -2338,11 +2164,11 @@ def check_small_refine_train(cfg_mod, dev):
                                  f"{kind} of the refiner's step")
 
 
-def refine_inputs(cfg, dev, n_items: int = 1, remat: bool = True):
-    """The refiner's task (`MinkUNet` with 18 output channels, full width,
-    `remat`) and batch: n_items x 180k jittered points against n_items x
-    360k-point targets (item 0 the same at every batch size), the
-    capacities n_items times the one-item ones."""
+def refine_inputs(dev, n_items: int = 1, remat: bool = True):
+    """The refiner's config, task (`MinkUNet` with 18 output channels, full
+    width, `remat`) and batch: n_items x 180k jittered points against
+    n_items x 360k-point targets (item 0 the same at every batch size),
+    the capacities n_items times the one-item ones."""
     import numpy as np
     import torch
     from lidiff_tpu_torch import config as cfg_mod
@@ -2354,8 +2180,7 @@ def refine_inputs(cfg, dev, n_items: int = 1, remat: bool = True):
     # gets the full point count, as the diffusion phases do: no voxel is
     # dropped
     rcfg = batch_cfg(cfg_mod.finalize_config(make_refine_cfg(
-        n, cfg["model"]["cr"], REFINE_UP,
-        {"capacity_fractions": [1.0] * 5})), n_items)
+        n, 1.0, REFINE_UP, {"capacity_fractions": [1.0] * 5})), n_items)
     task = refine.RefineTask(rcfg, device=dev, compute_dtype=torch.bfloat16,
                              seed=0, remat=remat)
     noisy = torch.from_numpy(np.concatenate(
@@ -2389,79 +2214,49 @@ def chamfer_match_inputs(task, noisy, gt):
     return (x, xm, ys, ym), (y, ym, xs, xm)
 
 
-def run_refine(cfg, kernels, dev):
-    """The refiner at full width: `MinkUNet` with 18 output channels, 180k
-    jittered points, 1.08M upsampled points against a 360k-point target.
-    First C2 at that shape, both directions, on the clouds of this very
-    step (`chamfer_match_inputs`); then one step with remat off and on
-    compared (`compare_remat`) and the timed steps of each, the remat run
-    last. Returns (C2's results, the remat run's launches over its timed
-    steps)."""
-    import torch
-    from lidiff_tpu_torch.models import refine
-    from lidiff_tpu_torch.ops import chamfer, knn
-    cuda = dev == "cuda"
-    n = N_PART * TILE
-    rcfg, task, noisy, gt = refine_inputs(cfg, dev)
-
-    # ---- 8. C2 at the chamfer's shape ----
+def phase_c2(steps: int, dev: str):
+    """C2 at the refiner's chamfer shape (180k jittered points upsampled to
+    1.08M against a 360k-point target), both directions, on the clouds of
+    the model's eval forward (`chamfer_match_inputs`), then on a two-item
+    batch with invalid rows. Returns ({"C2": its results}, {})."""
+    from lidiff_tpu_torch.ops import knn
+    _, task, noisy, gt = refine_inputs(dev)
     fwd_in, back_in = chamfer_match_inputs(task, noisy, gt)
+    del task, noisy, gt
     fwd = check_c2_case(knn, "chamfer, upsampled -> target", *fwd_in, 1,
                         c1_iters=2)
     back = check_c2_case(knn, "chamfer, target -> upsampled", *back_in, 1,
                          c1_iters=2)
-    if cuda and any(c["pairs"] >= 0.01 * c["scan_pairs"]
-                    for c in (fwd, back)):
+    if dev == "cuda" and any(c["pairs"] >= 0.01 * c["scan_pairs"]
+                             for c in (fwd, back)):
         raise AssertionError("C2's tiles stage more than 1% of a full "
                              "scan's pairs at the chamfer's shape")
-    c2 = {"C2": {**fwd, **{k + "_reverse": back[k] for k in (
+    del fwd_in, back_in
+    check_c2_case(knn, "two items, invalid rows", *batched_match_inputs(dev),
+                  2)
+    return {"C2": {**fwd, **{k + "_reverse": back[k] for k in (
         "ms", "index_ms", "with_index_ms", "host_paced_with_index_ms",
-        "c1_ms", "c1_index_ms", "pairs_per_query")}}}
-    del fwd_in, back_in, fwd, back
+        "c1_ms", "c1_index_ms", "pairs_per_query")}}}, {}
 
-    # ---- 9. training steps ----
-    def instrument(mark):
-        """Marks where the model's forward ends (the chamfer begins) and
-        around each index pass."""
-        loss_chamfer, grid_idx = refine.chamfer_distance, \
-            chamfer.nn_indices_grid
 
-        def timed_chamfer(*a, **kw):
-            mark("chamfer")
-            return loss_chamfer(*a, **kw)
-
-        def timed_idx(*a, **kw):
-            mark("idx_s")
-            out = grid_idx(*a, **kw)
-            mark("idx_e")
-            return out
-
-        refine.chamfer_distance = timed_chamfer
-        chamfer.nn_indices_grid = timed_idx
-
-        def undo():
-            refine.chamfer_distance = loss_chamfer
-            chamfer.nn_indices_grid = grid_idx
-
-        def split(step, elapsed):
-            at = dict(step)
-            idx = sum(elapsed(a[1], b[1]) for a, b in zip(
-                [m for m in step if m[0] == "idx_s"],
-                [m for m in step if m[0] == "idx_e"]))
-            model = elapsed(at["start"], at["chamfer"])
-            loss = elapsed(at["chamfer"], at["forward"])
-            return (f": model {model:.1f}, chamfer index passes {idx:.1f}, "
-                    f"rest of the chamfer {loss - idx:.1f}")
-        return undo, split
-
+def phase_refiner(steps: int, dev: str):
+    """Refiner training at full width: one step with remat off and on
+    compared (`compare_remat`), the steps of each (the remat run last),
+    then the steps at the config's batch of REFINE_BATCH (C2 over all its
+    items at once). Returns ({}, the remat runs' launches)."""
+    import torch
+    from lidiff_tpu_torch.models import refine
+    kernels = kernel_table()
+    n = N_PART * TILE
+    rcfg, task, noisy, gt = refine_inputs(dev)
     del task
+    batch = {"pcd_noise": noisy, "pcd_full": gt}
 
     def make_task(remat, dtype=torch.bfloat16):
         return refine.RefineTask(rcfg, device=dev, compute_dtype=dtype,
                                  seed=0, remat=remat)
 
-    compare_remat(lambda r: make_task(r, torch.float32),
-                  {"pcd_noise": noisy, "pcd_full": gt}, {},
+    compare_remat(lambda r: make_task(r, torch.float32), batch, {},
                   "refiner training")
     log(f"refiner training: {n} points -> {n * REFINE_UP} upsampled against "
         f"a {2 * n}-point target, batch 1, bf16 compute with float32 "
@@ -2469,15 +2264,22 @@ def run_refine(cfg, kernels, dev):
     for remat in (False, True):
         task = make_task(remat)
         launches = refine_steps(
-            task, rcfg, {"pcd_noise": noisy, "pcd_full": gt}, kernels, dev,
-            "refiner training" + ("" if remat else ", remat off"), remat,
-            instrument, profile=remat)
+            task, rcfg, batch, kernels, dev,
+            "refiner training" + ("" if remat else ", remat off"), remat)
         del task
-    return c2, launches
+    del batch, noisy, gt
+    m = REFINE_BATCH
+    rcfg, task, noisy, gt = refine_inputs(dev, m)
+    log(f"refiner training at batch {m}: {m} x {n} points -> {m} x "
+        f"{n * REFINE_UP} upsampled against {m} x {2 * n}-point targets, "
+        f"remat on")
+    return {}, {"refiner training": launches,
+                f"refiner training at batch {m}": refine_steps(
+                    task, rcfg, {"pcd_noise": noisy, "pcd_full": gt},
+                    kernels, dev, f"refiner training at batch {m}", True)}
 
 
-def refine_steps(task, rcfg, batch, kernels, dev, what: str, remat: bool,
-                 instrument=None, profile: bool = True):
+def refine_steps(task, rcfg, batch, kernels, dev, what: str, remat: bool):
     """`train_steps` of the refiner, with the launches per step that its
     convs give: every column conv but the first (its input needs no
     gradient) has a feats gradient, and with remat A1 runs once more for
@@ -2495,21 +2297,7 @@ def refine_steps(task, rcfg, batch, kernels, dev, what: str, remat: bool,
          "B1": 5, "C2": 2, "C1": 0, "TG": ups * (2 if remat else 1),
          "TG bwd": ups, "BN": bns + (staged if remat else 0),
          "BN bwd": bns},
-        lambda m: f"cd_loss {float(m['cd_loss']):.4f}", instrument,
-        profile=profile)
-
-
-def run_refine_batch(cfg, kernels, dev, n: int = REFINE_BATCH):
-    """The refiner at the config's batch size with remat: n items of 180k
-    jittered points against 360k-point targets, C2 over all n items at
-    once (`n_batch` n). Returns its launches over the timed steps."""
-    rcfg, task, noisy, gt = refine_inputs(cfg, dev, n)
-    log(f"refiner training at batch {n}: {n} x {N_PART * TILE} points -> "
-        f"{n} x {N_PART * TILE * REFINE_UP} upsampled against {n} x "
-        f"{2 * N_PART * TILE}-point targets, remat on")
-    return refine_steps(task, rcfg, {"pcd_noise": noisy, "pcd_full": gt},
-                        kernels, dev, f"refiner training at batch {n}", True,
-                        profile=False)
+        lambda m: f"cd_loss {float(m['cd_loss']):.4f}")
 
 
 def run_refine_cli(dev: str, tmp: str) -> None:
@@ -2731,13 +2519,11 @@ def run_pipeline(cfg, kernels, steps: int, dev):
     """`DiffCompletion.complete_scan` at full width: random-init diffusion
     and refiner checkpoints saved as the trainers save them, a PIPE_SCAN-
     point synthetic ring scan as .bin; bf16, then int8 on the bf16 run's
-    crop and FPS (the same scan's). Host time of each stage (crop and FPS,
-    encoder and sampling, postprocess, refine; the bf16 run's .ply files
-    with normals), launches, refined = diff x up_factor; then the
-    metrics of `eval_path` against a synthetic ground truth, each with its
-    host time. Both runs ask for bf16 by `compute_dtype` (the checkpoints'
-    `tpu.compute_dtype` is not read) and check that both tasks got it.
-    Returns the int8 run's launches."""
+    crop and FPS (the same scan's). Launches, refined = diff x up_factor,
+    the bf16 run's .ply files with normals; then the metrics of
+    `eval_path` against a synthetic ground truth. Both runs ask for bf16
+    by `compute_dtype` (the checkpoints' `tpu.compute_dtype` is not read)
+    and check that both tasks got it. Returns the int8 run's launches."""
     import numpy as np
     import torch
     from lidiff_tpu_torch import config as cfg_mod
@@ -2794,27 +2580,17 @@ def run_pipeline(cfg, kernels, steps: int, dev):
             dc.refine = counted
             for k in kernels.values():
                 k.launches = 0
-            t0 = time.perf_counter()
             refined, diff = dc.complete_scan(points)
-            total = time.perf_counter() - t0
             launches = {k: v.launches for k, v in kernels.items()}
-            st = dc.times
-            crop, written = "crop + FPS reused from the bf16 run", ""
             if not quant:
-                t0 = time.perf_counter()
                 out_dir = os.path.join(tmp, "out")
                 for sub in ("refine", "diff"):
                     os.makedirs(os.path.join(out_dir, sub))
                 pipe.write_outputs(out_dir, "000000.bin", refined, diff)
-                crop = f"crop + FPS {st['preprocess']:.3f} s"
-                written = (".ply files with normals "
-                           f"{time.perf_counter() - t0:.3f} s; ")
-            log(f"pipeline {what}, {len(points)}-point scan, {steps} steps: "
-                f"{total:.3f} s = {crop}, encoder + sampling "
-                f"{st['sample']:.3f} s, postprocess {st['postprocess']:.3f} "
-                f"s, refine {st['refine']:.3f} s; {written}{len(diff)} diff "
-                f"points -> {len(refined)} refined; launches {launches}, of "
-                f"them in refine {refine_counts}")
+            log(f"pipeline {what}, {len(points)}-point scan, {steps} steps"
+                f"{', crop + FPS reused from the bf16 run' if quant else ''}"
+                f": {len(diff)} diff points -> {len(refined)} refined; "
+                f"launches {launches}, of them in refine {refine_counts}")
             if not (0 < len(diff) <= n
                     and len(refined) == REFINE_UP * len(diff)
                     and np.isfinite(refined).all()):
@@ -2842,28 +2618,21 @@ def run_pipeline(cfg, kernels, steps: int, dev):
         check_complete_scans(pipe, exps, scans, steps, dev)
         check_cli_devices(pipe, exps, scans, steps, dev, tmp)
     pred = out["int8"][0]
-    times, vals = {}, {}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        vals[name] = fn()
-        times[name] = time.perf_counter() - t0
-
     cd, rmse, iou = metrics.ChamferDistance(), metrics.RMSE(), \
         metrics.CompletionIoU()
     pr = metrics.PrecisionRecall(0.05, 0.10, 100)
-    timed("CD", lambda: (cd.update(gt, pred), cd.compute()[0])[1])
-    timed("RMSE", lambda: (rmse.update(gt, pred), rmse.compute()[0])[1])
-    timed("PR-AUC F1", lambda: (pr.update(gt, pred), pr.compute_auc()[2])[1])
-    timed("IoU 0.5/0.2/0.1", lambda: (iou.update(gt, pred),
-                                      tuple(iou.compute().values()))[1])
-    timed("JSD 3D", lambda: histogram_metrics.compute_hist_metrics(
-        gt, pred, bev=False))
-    timed("JSD BEV", lambda: histogram_metrics.compute_hist_metrics(
-        gt, pred, bev=True))
+    for m in (cd, rmse, pr, iou):
+        m.update(gt, pred)
+    vals = {"CD": cd.compute()[0], "RMSE": rmse.compute()[0],
+            "PR-AUC F1": pr.compute_auc()[2],
+            "IoU 0.5/0.2/0.1": tuple(iou.compute().values()),
+            "JSD 3D": histogram_metrics.compute_hist_metrics(gt, pred,
+                                                            bev=False),
+            "JSD BEV": histogram_metrics.compute_hist_metrics(gt, pred,
+                                                             bev=True)}
     log("pipeline metrics, int8 refined cloud against a "
-        f"{len(gt)}-point synthetic ground truth (host seconds): "
-        + "; ".join(f"{k} {vals[k]} ({times[k]:.3f} s)" for k in vals))
+        f"{len(gt)}-point synthetic ground truth: "
+        + "; ".join(f"{k} {v}" for k, v in vals.items()))
     flat = [x for v in vals.values()
             for x in (v if isinstance(v, tuple) else (v,))]
     if not all(math.isfinite(x) for x in flat):
@@ -2901,10 +2670,8 @@ def check_complete_scans(pipe, exps, scans, steps: int, dev) -> None:
         return max(float(cKDTree(b).query(a)[0].mean()),
                    float(cKDTree(a).query(b)[0].mean()))
 
-    t0 = time.perf_counter()
     dc = make()
     got = dc.complete_scans(scans, devices=[dev, dev])
-    two_s = time.perf_counter() - t0
     if {r.task.compute_dtype for rs in dc._replicas.values()
             for r in rs} != {torch.bfloat16}:
         raise AssertionError("complete_scans' replicas are not bf16")
@@ -2928,8 +2695,8 @@ def check_complete_scans(pipe, exps, scans, steps: int, dev) -> None:
                 f"them {', '.join(f'{v:.6f}' for v in nns)} m, relative "
                 f"counts {', '.join(f'{c:.2e}' for c in counts)}; with the "
                 f"other replica's generator {control[-1]:.6f} m")
-    log(f"complete_scans: 2 scans over 2 replicas on one card in "
-        f"{two_s:.3f} s (with building the replicas); sound readings at most "
+    log(f"complete_scans: 2 scans over 2 replicas on one card; sound "
+        f"readings at most "
         f"{max(n for n, _ in sound):.6f} m, the control at least "
         f"{min(control):.6f} m, limit {SCANS_NN_TOL} m")
     if not all(nn <= SCANS_NN_TOL and c <= SCANS_COUNT_TOL
@@ -2988,13 +2755,11 @@ def check_cli_devices(pipe, exps, scans, steps: int, dev, tmp: str) -> None:
         np.concatenate([s, np.ones((len(s), 1), np.float32)], 1).tofile(
             os.path.join(scan_dir, name))
     said = io.StringIO()
-    t0 = time.perf_counter()
     with pipeline_cli(pipe, {"LIDIFF_COMPUTE_DTYPE": "bfloat16"},
                       [dev, dev]) as built, contextlib.redirect_stdout(said):
         pipe.main(["-d", exps["diff_net"], "-r", exps["refine_net"], "-T",
                    str(steps), "-s", "6.0", "-p", scan_dir, "-o", out]
                   + (["--device", "cpu"] if dev == "cpu" else []))
-    total = time.perf_counter() - t0
     lines = [l for l in said.getvalue().splitlines() if "s/scan" in l]
     dc = built[0]
     tasks = [dc.task, dc.refine_task] + [
@@ -3008,7 +2773,7 @@ def check_cli_devices(pipe, exps, scans, steps: int, dev, tmp: str) -> None:
             len(read_ply(os.path.join(exp, sub, f"{stem}.ply"))["points"])
             for sub in ("diff", "refine")))
     log(f"pipeline CLI over [{dev}, {dev}] (LIDIFF_COMPUTE_DTYPE=bfloat16): "
-        f"{total:.3f} s with building the pipeline; {lines}; (diff, refined) "
+        f"{lines}; (diff, refined) "
         f"points {counts}; {len(tasks)} tasks in "
         f"{sorted({str(t.compute_dtype) for t in tasks})}")
     if len(lines) != len(names) or len(tasks) != 6 or any(
@@ -3094,26 +2859,10 @@ def run_eval_clis(dev: str, tree: str, kernels) -> None:
                              "dtype from LIDIFF_COMPUTE_DTYPE")
 
 
-_CATEGORIES = (("TG transpose_gather", ("transpose_gather_fwd",
-                                         "transpose_scatter_bwd")),
-               ("A3 conv3_columns_dw", ("conv3_columns_dw",)),
-               ("A1 conv3_columns", ("conv3_columns",)),
-               ("B1 kmap3_columns", ("kmap3_",)),
-               ("C2 nn_match_tiled", ("nn_match_tiled",)),
-               ("C1 nn_match", ("nn_match",)),
-               ("F1 fps", ("fps_cluster",)),
-               ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas",
-                                  "nvjet")),
-               ("optimizer (Adam)", ("multi_tensor",)),
-               ("NCCL", ("nccl",)),
-               ("sort", ("sort", "radix")),
-               ("scatter/gather/index", ("index", "scatter", "gather")),
-               ("copy/cast/concat", ("copy",)))
-
-
-def run_ptv3(kernels, dev):
-    """Phase 18. Returns ({kernel: result} for the kernels line, the PTv3
-    step's launches over its timed steps)."""
+def phase_ptv3(steps: int, dev: str):
+    """On the `ptv3.train` cell's first batch: kernel serial_codes, xCPE's
+    convs, the training steps. Returns ({kernel: result} for the kernels
+    line, {"ptv3 training": the steps' launches})."""
     import torch
     from benchmark import harness
     from benchmark.drivers import seg_train
@@ -3238,62 +2987,11 @@ def run_ptv3(kernels, dev):
             "BN": bns, "BN bwd": bns}
     launches = train_steps(
         task, cfg, batch, torch.Generator(device=dev).manual_seed(19),
-        kernels, dev, "PTv3 training", "loss", want,
+        kernel_table(), dev, "PTv3 training", "loss", want,
         lambda m: f"loss {float(m['loss']):.4f}")
-    return res, {(k if k in ("SC", "BN", "BN bwd") else f"{k} xCPE"):
-                 launches[k] for k in want}
-
-
-def _category(kernel_name: str) -> str:
-    low = kernel_name.lower()
-    # A4 runs A1's tile kernels on int8 (`signed char`) feats
-    if "conv3_columns" in low and "kernel<signed char" in low:
-        return "A4 conv3_columns_q"
-    return next((c for c, keys in _CATEGORIES
-                 if any(k in low for k in keys)), "other")
-
-
-def profile_step(step, label: str) -> None:
-    """Device time by kernel over one call of `step` (`utils/prof.py`:
-    torch.profiler through `trace`, the call inside `annotate` and timed by
-    `block_and_time`), and the device's busy share of its wall time; beside
-    it the A1 kernels the profile holds against the launches A1's wrapper
-    counted in the call (fewer: the profile lost kernels, and its times
-    are short). `step` returns tensors on the card, which `block_and_time`
-    waits for."""
-    import torch
-    from lidiff_tpu_torch.utils import prof
-    a1 = kernel_table()["A1"]
-    before = a1.launches
-    with prof.trace() as p:
-        with prof.annotate(label):
-            _, wall_s = prof.block_and_time(step)
-    launched = a1.launches - before
-    wall_us = wall_s * 1e6
-    by_name: dict[str, float] = {}
-    for e in p.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                not e.is_user_annotation:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    if not by_name:
-        log("profile: the profiler saw no device events")
-        return
-    seen = sum(1 for e in p.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and _category(e.name) == "A1 conv3_columns")
-    cats: dict[str, float] = {}
-    for name, us in by_name.items():
-        cat = _category(name)
-        cats[cat] = cats.get(cat, 0.0) + us
-    log(f"profile of {label}: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%); A1 kernels in "
-        f"the profile {seen} of {launched} launched")
-    for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
-        log(f"  {cat:22s} {us / 1e3:9.2f} ms  {100 * us / busy:5.1f}%")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"    {us / 1e3:8.2f} ms  {name[:110]}")
+    return res, {"ptv3 training": {
+        (k if k in ("SC", "BN", "BN bwd") else f"{k} xCPE"): launches[k]
+        for k in want}}
 
 
 def log_ptxas(name: str, report: str) -> None:
@@ -3317,14 +3015,34 @@ def _sync(dev: str) -> None:
         torch.cuda.synchronize()
 
 
+def phase_tg(steps: int, dev: str):
+    return check_transpose_gather(dev), {}
+
+
+def phase_bn(steps: int, dev: str):
+    return check_masked_bn(dev), {}
+
+
+def phase_fps(steps: int, dev: str):
+    return {"F1": check_f1(dev)}, {}
+
+
+# name: fn(steps, dev) -> ({kernel: result for the kernels line},
+# {path: launches}), in the order a whole run takes them
+PHASES = {"kernels": phase_kernels, "tg": phase_tg, "bn": phase_bn,
+          "fps": phase_fps, "parity": phase_parity,
+          "sampling": phase_sampling, "training": phase_training,
+          "ddp": phase_ddp, "c2": phase_c2, "refiner": phase_refiner,
+          "pipeline": phase_pipeline, "clis": phase_clis,
+          "ptv3": phase_ptv3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
                     help="solver steps of the completion (default 4)")
-    ap.add_argument("--ptv3-only", action="store_true",
-                    help="build the kernels and run phase 18 alone")
-    ap.add_argument("--bn-only", action="store_true",
-                    help="build the kernels and run phase 19 alone")
+    ap.add_argument("--phase", choices=list(PHASES), default=None,
+                    help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -3346,29 +3064,25 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 1. build ----
     t0 = time.time()
     reports = native.build_all()
     log(f"build: {len(reports)} kernel libraries in {time.time() - t0:.1f} s")
     for name, rep in reports.items():
         log_ptxas(name, rep)
 
-    if args.bn_only:
-        kernels = kernel_table()
+    res, paths = {}, {}
+    kernels = kernel_table()
+    for name in [args.phase] if args.phase else PHASES:
+        t0 = time.time()
         for k in kernels.values():
             k.launches = 0
-        res = check_masked_bn("cuda")
-        paths = {"masked bn": {n: k.launches for n, k in kernels.items()}}
-    elif args.ptv3_only:
-        res, paths = {}, {}
-    else:
-        res, paths = run(args.steps)
-        # the plan's taps: a second entry point of B1's source
-        res["B1"]["taps_launches"] = paths["sampling"]["B1 taps"]
-    # ---- 18. PTv3's train step ----
-    if not args.bn_only:
-        ptv3_res, paths["ptv3 training"] = run_ptv3(kernel_table(), "cuda")
-        res.update(ptv3_res)
+        r, p = PHASES[name](args.steps, "cuda")
+        res.update(r)
+        paths.update(p)
+        # a phase's own launches: what the kernels line reports where the
+        # path a kernel's count is from did not run
+        paths.setdefault(name, {n: k.launches for n, k in kernels.items()})
+        log(f"phase {name}: {time.time() - t0:.1f} s")
     # kernel: (source, TPU kernel it replaces, the path its count is from)
     sources = {
         "A1": ("conv3_columns", "lidiff_tpu/ops/pallas_conv.py:840",
@@ -3407,12 +3121,12 @@ def main(argv=None) -> int:
                "refiner training"),
         "BN bwd": ("masked_bn", "none: XLA's fusion of its transpose",
                    "refiner training")}
-    if args.ptv3_only:
-        sources = {k: v for k, v in sources.items()
-                   if k.endswith("xCPE") or k == "SC"}
-    if args.bn_only:
-        sources = {k: (*v[:2], "masked bn") for k, v in sources.items()
-                   if k.startswith("BN")}
+    def launches(path: str) -> dict:
+        return paths[path if path in paths else args.phase]
+
+    if "B1" in res:
+        # the plan's taps: a second entry point of B1's source
+        res["B1"]["taps_launches"] = launches("sampling")["B1 taps"]
     for path, names in (
             ("sampling", ("A1", "B1", "B1 taps", "C1", "TG")),
             ("sampling unfused", ("A1", "B1", "B1 taps", "C1", "TG")),
@@ -3431,7 +3145,8 @@ def main(argv=None) -> int:
             ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1", "TG")),
             ("ptv3 training", ("A1 xCPE", "A2 xCPE", "A3 xCPE", "SC", "BN",
                                "BN bwd")),
-            ("masked bn", ("BN", "BN bwd"))):
+            ("tg", ("TG", "TG bwd")), ("bn", ("BN", "BN bwd")),
+            ("fps", ("F1",))):
         if path not in paths:
             continue
         for n in names:
@@ -3441,8 +3156,8 @@ def main(argv=None) -> int:
     line = {"kernels": [
         {"name": f"{n} {src}", "route": "cuda",
          "source": f"lidiff_tpu_torch/csrc/{src}.cu", "replaces": rep,
-         "launches": paths[path][n], **res[n]}
-        for n, (src, rep, path) in sources.items()]}
+         "launches": launches(path)[n], **res[n]}
+        for n, (src, rep, path) in sources.items() if n in res]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

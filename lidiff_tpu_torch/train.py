@@ -23,21 +23,19 @@ quantizes.
 
 from __future__ import annotations
 
-import argparse
 import os
-import signal
-import time
 
 import numpy as np
 import torch
 
 from lidiff_tpu_torch.config import (compute_dtype_from_env,
                                      conv_quant_from_env, finalize_config,
-                                     load_config, save_config)
+                                     load_config)
 from lidiff_tpu_torch.data.datasets import dataloaders
 from lidiff_tpu_torch.models.diffusion import DiffusionTask
 from lidiff_tpu_torch.parallel import mesh
-from lidiff_tpu_torch.training.trainer import CheckpointManager, Trainer
+from lidiff_tpu_torch.training import loop
+from lidiff_tpu_torch.training.trainer import CheckpointManager
 from lidiff_tpu_torch.utils.metrics import ChamferDistance, PrecisionRecall
 from lidiff_tpu_torch.utils.ply import write_ply
 
@@ -46,23 +44,8 @@ def set_deterministic(seed: int = 42):
     np.random.seed(seed)
 
 
-def _parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="lidiff_tpu_torch.train",
-                                 description=__doc__.split("\n")[0])
-    ap.add_argument("--config", "-c", type=str,
-                    default=os.path.join(
-                        os.path.dirname(os.path.abspath(__file__)),
-                        "config/config.json"))
-    ap.add_argument("--weights", "-w", type=str, default=None,
-                    help="checkpoint dir to load weights from (no resume)")
-    ap.add_argument("--checkpoint", "-ckpt", type=str, default=None,
-                    help="experiment dir to resume training from")
-    ap.add_argument("--test", "-t", action="store_true")
-    ap.add_argument("--max_steps", type=int, default=None,
-                    help="cap on total optimizer steps (smoke runs)")
-    ap.add_argument("--device", type=str, default=None,
-                    help="'cpu' for the plain PyTorch path (default: cuda)")
-    return ap
+def _parser():
+    return loop.parser("lidiff_tpu_torch.train", __doc__, "config/config.json")
 
 
 def main(argv=None) -> None:
@@ -70,97 +53,24 @@ def main(argv=None) -> None:
     cfg = load_config(args.config)
     if args.weights is not None and args.test:
         cfg = _graft_test_config(cfg, args.weights)
-    world = 1 if args.test else mesh.world_size(cfg, args.device)
-    mesh.launch(_run, world, args.device, args, cfg)
+    loop.launch(_run, args, cfg)
 
 
 def _run(rank: int, world: int, group, device, args, cfg) -> None:
-    """One rank of the run (the whole run at world 1): rank 0 writes the
-    hparams, checkpoints, logs and validations."""
+    """One rank of the run (`loop.run`): one validation batch sampled and
+    scored every five epochs."""
     set_deterministic()
     task = DiffusionTask(cfg, device=device, seed=42,
                          compute_dtype=compute_dtype_from_env(),
                          conv_quant=conv_quant_from_env(), group=group)
-    dev = task.device
     data = dataloaders[cfg["data"]["dataloader"]](cfg)
-
-    exp_dir = os.path.join("experiments", cfg["experiment"]["id"])
-    if rank == 0:
-        os.makedirs(exp_dir, exist_ok=True)
-        save_config(cfg, os.path.join(exp_dir, "hparams.json"))
-
-    loader = data.train_dataloader(rank, world)
-    trainer = Trainer(task, cfg, exp_dir, steps_per_epoch=max(len(loader), 1),
-                      group=group)
-    gen = mesh.rank_generator(42, rank, dev)
-
-    src = args.checkpoint or args.weights
-    if src:
-        trainer.ckpt = CheckpointManager(os.path.join(src, "checkpoints"))
-        trainer.maybe_restore()
-        trainer.ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
-        if args.weights and not args.checkpoint:
-            trainer.global_step = 0          # weights-only load
-
-    if args.test:
-        print("TESTING MODE")
-        run_test(task, cfg, data, exp_dir)
-        return
-
-    if rank == 0:
-        procs = f", {world} processes" if world > 1 else ""
-        print(f"TRAINING MODE ({dev}{procs})")
-        old_handlers = {s: signal.getsignal(s)
-                        for s in (signal.SIGTERM, signal.SIGINT)}
-        trainer.install_signal_checkpointing()
-    try:
-        _train_loop(trainer, loader, data, cfg, gen, args)
-    finally:
-        if rank == 0:
-            for s, h in old_handlers.items():
-                signal.signal(s, h)
-    trainer.logger.flush()
-
-
-def _train_loop(trainer, loader, data, cfg, gen, args) -> None:
-    dev = trainer.task.device
-    step = trainer.global_step
-    # resume at the epoch after the restored one (without this a run
-    # resumed at epoch 15/20 would train 20 more epochs and misalign the
-    # LR-decay boundaries); mid-epoch signal checkpoints record epoch=-1
-    # and fall back to step arithmetic
-    if args.checkpoint and trainer.last_epoch >= 0:
-        start_epoch = trainer.last_epoch + 1
-    else:
-        start_epoch = step // max(trainer.steps_per_epoch, 1)
-    max_steps = args.max_steps
-    for epoch in range(start_epoch, int(cfg["train"]["max_epoch"])):
-        for batch in loader:
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in batch.items() if k != "filename"}
-            t0 = time.time()
-            metrics = trainer.train_step(batch, gen)
-            step += 1
-            if step % 10 == 0 and trainer.is_main:
-                m = {f"train/{k}": float(v) for k, v in metrics.items()}
-                m["train/step_time"] = time.time() - t0
-                trainer.logger.log(step, m)
-                print(f"epoch {epoch} step {step} "
-                      + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
-                dropped = m["train/overflow_vox"]
-                if dropped:
-                    print(f"WARNING: step {step}: {int(dropped)} voxels "
-                          "dropped (capacity exceeded): raise "
-                          "tpu.full_capacities / part_capacities for this "
-                          "dataset")
-            if max_steps and step >= max_steps:
-                break
-        trainer.save(epoch)
-        # the reference validates every 5 epochs on about one batch
-        if (epoch + 1) % 5 == 0 and trainer.is_main:
-            run_validation(trainer.task, cfg, data, trainer, step)
-        if max_steps and step >= max_steps:
-            break
+    loop.run(rank, world, group, args, cfg, task, data,
+             generator=mesh.rank_generator(42, rank, task.device),
+             test=lambda tr: run_test(task, cfg, data, tr.exp_dir),
+             validate=lambda tr, epoch, step: run_validation(
+                 task, cfg, data, tr, step),
+             # the reference validates every 5 epochs on about one batch
+             validate_every=5)
 
 
 def _graft_test_config(cfg: dict, weights: str) -> dict:

@@ -231,25 +231,36 @@ def _tree(root, rng, n_scans=2):
                 os.path.join(d, "labels", f"{i:06d}.label"))
 
 
-def test_train_seg_cli(tmp_path, monkeypatch, small_patch):  # noqa: F811
+def test_train_seg_cli(tmp_path, monkeypatch, small_patch,  # noqa: F811
+                       capsys):
     """Two steps of the CLI on a tiny tree, a checkpoint, the validation's
-    mean IoU."""
+    mean IoU; then a resume from the experiment dir that restores step 2
+    (epoch 0) and trains one more step in epoch 1."""
     from lidiff_tpu_torch import train_seg
-    _tree(str(tmp_path / "data"), np.random.default_rng(1))
+    # four scans at batch 2: two steps an epoch
+    _tree(str(tmp_path / "data"), np.random.default_rng(1), n_scans=4)
     cfg = json.loads(json.dumps(CFG))
     cfg["experiment"] = {"id": "tiny"}
     cfg["data"].update(data_dir=str(tmp_path / "data"), train=["00"],
                        validation=["08"], mix_prob=0.8)
-    cfg["train"].update(batch_size=2, num_workers=1, n_gpus=1, max_epoch=1)
+    cfg["train"].update(batch_size=2, num_workers=1, n_gpus=1, max_epoch=2)
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
     monkeypatch.chdir(tmp_path)
     train_seg.main(["-c", str(path), "--device", "cpu", "--max_steps", "2"])
-    ck = tmp_path / "experiments" / "tiny" / "checkpoints"
-    assert any(f.endswith(".pt") for f in os.listdir(ck))
+    exp = tmp_path / "experiments" / "tiny"
+    ck = exp / "checkpoints"
+    assert sorted(os.listdir(ck)) == ["hparams.json", "step_00000002.pt"]
+    assert "TRAINING MODE (cpu)" in capsys.readouterr().out
     task = P.SegTask(cfg, device="cpu", compute_dtype=torch.float32)
     miou = train_seg.run_validation(task, S.SegDataModule(cfg))
     assert 0.0 <= miou <= 1.0
+
+    train_seg.main(["-c", str(path), "-ckpt", str(exp), "--max_steps", "3",
+                    "--device", "cpu"])
+    state = torch.load(ck / "step_00000003.pt", weights_only=True)
+    assert state["step"] == 3 and state["epoch"] == 1
+    assert "epoch 1: val mIoU" in capsys.readouterr().out
 
 
 def test_the_shipped_config_builds_and_fixed_values_are_checked():
