@@ -37,6 +37,12 @@ profile is taken with `lidiff_tpu_torch.utils.prof.trace` (README
             the refiner's shapes at batch 8 against the eager version: the
             output bit for bit given the kernels' moments and between two
             calls, the moments and gradients within BN_F32_TOL;
+  gate      GA, the eval gate's apply step (`ops/gate.py` `gate_apply`),
+            bit for bit against `gate_apply_plain` and timed at the
+            `diff.complete` cell's eight gate shapes; then one guided
+            denoise on the sampling inputs through the gate tables against
+            per-voxel gates (float32 and bf16, deterministic algorithms),
+            with GA's launches and the table and gated rows;
   fps       F1 (farthest-point sampling) against `fps_plain` index for
             index in eleven cases and against the host C++ copy at 18k of
             120k;
@@ -86,7 +92,8 @@ profile is taken with `lidiff_tpu_torch.utils.prof.trace` (README
 Each main path's launches are checked: C1 10 a guided step, A1 once more
 per stage conv and TG's forward once more per transpose conv with remat,
 `masked_bn_apply` once per BatchNorm of a training forward and none in eval
-mode. It prints one line per check, then a {"kernels": [...]} JSON line
+mode, GA 8 a denoiser call (16 a guided step unfused) and none in
+training. It prints one line per check, then a {"kernels": [...]} JSON line
 (the kernels of the phases run), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a run without a CUDA device or outside a checkout.
@@ -153,6 +160,22 @@ BN_SHAPES = (("L0", 1_440_768, 1_422_246, 96), ("L3", 1_152_000, 305_562, 256),
 BN_F32_TOL = 1e-4           # fused against eager float32 BatchNorm, x the
                             # largest |ref| (1 + it for the output): the same
                             # values summed in other orders
+# GA (the eval gate's apply step) at the `diff.complete` cell's shapes:
+# every level at capacity 180,096, the fused pair G = 2, one item, the
+# cond bank's 16,256 L4 rows and the uncond bank's 8; (gate, C) in the
+# order the denoiser runs them. The kernels line's GA row is gate_u1's.
+GATE_V = 180_096
+GATE_BANK = 16_256 + 8
+GATE_SHAPES = (("gate_s1", 32), ("gate_s2", 32), ("gate_s3", 64),
+               ("gate_s4", 128), ("gate_u1", 256), ("gate_u2", 256),
+               ("gate_u3", 128), ("gate_u4", 96))
+GATE_VALID = 0.9            # share of valid rows
+GATE_EPS_F32_TOL = 1e-4     # the guided eps through the gate tables against
+                            # per-voxel gates, x max|eps|: float32, the same
+                            # products, the table's GEMMs over fewer rows
+GATE_EPS_BF16_TOL = 2.0 ** -5   # the same in bf16, x max|eps|: a gate value
+                            # rounded the other way moves the eps through
+                            # about 40 bf16 layers and the guidance's 2w + 1
 # PTv3's xCPE convs held and timed at the `ptv3.train` cell's widest
 # shapes: (Cin, Cout, pyramid level); the last is the kernels line's
 PTV3_WIDTHS = ((256, 256, 3), (512, 512, 4))
@@ -233,8 +256,8 @@ class Count:
 def kernel_table() -> dict:
     """The launch counters of every kernel the main paths run, by name:
     each has a `launches` that its wrapper raises at a launch."""
-    from lidiff_tpu_torch.ops import (batchnorm, fps, grid, knn, serialize,
-                                      sparse_conv)
+    from lidiff_tpu_torch.ops import (batchnorm, fps, gate, grid, knn,
+                                      serialize, sparse_conv)
     return {"A1": sparse_conv._conv3_kernel,
             "A4": sparse_conv._conv3_q_kernel,
             "A2": sparse_conv.Conv3ColumnsFunction,
@@ -247,7 +270,8 @@ def kernel_table() -> dict:
             "TG": sparse_conv._gather_fwd_kernel,
             "TG bwd": sparse_conv._scatter_bwd_kernel,
             "SC": serialize._codes_kernel,
-            "BN": batchnorm._apply_kernel, "BN bwd": batchnorm._dx_kernel}
+            "BN": batchnorm._apply_kernel, "BN bwd": batchnorm._dx_kernel,
+            "GA": gate._apply_kernel}
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -974,6 +998,153 @@ def check_masked_bn(dev):
             for n, d in (("BN", fwd), ("BN bwd", bwd))}
 
 
+def check_gate_apply(dev):
+    """GA, the eval gate's apply step (`ops/gate.py` `gate_apply` on CUDA
+    tensors), at GATE_SHAPES in bf16: against `gate_apply_plain` on the
+    same tensors bit for bit (a share 1 - GATE_VALID of the rows masked,
+    their items and bank rows out of range), then timed beside the plain
+    version, the library yardstick (`index_select` of the table rows, then
+    `where` and `mul`; the flat row indices made outside the timing) and
+    the bound by bytes: feats read and out written (2 C bytes a row and
+    group each), the int32 bank row a row and group, the row's item and
+    mask byte, the table once. Returns the kernels line's "GA" (gate_u1's
+    shape) with the eight gates' sums beside it."""
+    import torch
+    from lidiff_tpu_torch.ops import gate
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf16, V, G, nb = torch.bfloat16, GATE_V, 2, GATE_BANK
+    mask = torch.rand(V, generator=gen, device=dev) < GATE_VALID
+    coords = torch.zeros(V, 4, dtype=torch.int32, device=dev)
+    coords[:, 1:] = torch.randint(-500, 500, (V, 3), generator=gen,
+                                  device=dev, dtype=torch.int32)
+    coords[~mask, 0] = 3
+    rows = torch.randint(0, nb, (V, G), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rows[~mask] = nb + 7
+    flat = torch.where(mask[:, None], rows.long(), 0).reshape(-1)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    res = None
+    for name, C in GATE_SHAPES:
+        feats = torch.randn(V, G * C, generator=gen, device=dev).to(bf16)
+        table = torch.randn(nb, C, generator=gen, device=dev).to(bf16)
+        args = (feats, table, rows, coords, mask, nb)
+        out = gate.gate_apply(*args)
+        ref = gate.gate_apply_plain(*args)
+        if not (out.dtype == ref.dtype == bf16
+                and torch.equal(out.view(torch.int16), ref.view(torch.int16))):
+            raise AssertionError(f"GA {name}: differs from gate_apply_plain")
+
+        def library():
+            w = torch.index_select(table, 0, flat).view(V, G, C)
+            w = torch.where(mask[:, None, None], w, 0.0)
+            return (feats.view(V, G, C) * w).view(V, -1)
+        if not torch.equal(library().view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"GA {name}: the yardstick differs")
+        times = {"ms": _time_ms(lambda: gate.gate_apply(*args), 20),
+                 "plain_ms": _time_ms(lambda: gate.gate_apply_plain(*args),
+                                      5),
+                 "library_ms": _time_ms(library, 5)}
+        times["bound_ms"], _ = _bound_ms(
+            0, PEAK_F32, V * G * (4 * C + 4) + V * 5 + nb * C * 2)
+        for k, v in times.items():
+            total[k] += v
+        log(f"GA {name} V={V} G={G} C={C} bank {nb} rows, valid "
+            f"{int(mask.sum())}: = plain bit for bit; {times['ms']:.4f} ms "
+            f"(bound {times['bound_ms']:.4f}, plain {times['plain_ms']:.4f}, "
+            f"index_select + where + mul {times['library_ms']:.4f})")
+        if name == "gate_u1":
+            res = dict(max_abs_err=0, **times, bound_by="bytes")
+        del feats, table, out, ref
+    log(f"GA over the eight gates: {total['ms']:.4f} ms (bound "
+        f"{total['bound_ms']:.4f}, plain {total['plain_ms']:.4f}, "
+        f"index_select + where + mul {total['library_ms']:.4f})")
+    res["eight_gates"] = total
+    return res
+
+
+def check_gate_denoise(steps: int, dev):
+    """One guided denoise on the sampling inputs (180k points, G = 2)
+    through the gate tables (`StageGate.apply_table`) against per-voxel
+    gates on the same weights, banks and cloud (`apply_table` replaced by
+    the training formula on match = bank[rows]), under deterministic
+    algorithms (the down conv's scatter adds in a fixed order): float32
+    within GATE_EPS_F32_TOL of max|eps|, bf16 within GATE_EPS_BF16_TOL.
+    Checks GA's launches (8 a call, and 8 of its kernels and 8
+    `lidiff.model.gate` spans in the call's profile) and that the tables'
+    rows are under a tenth of the gated rows."""
+    import torch
+    from lidiff_tpu_torch.models import minkunet
+    from lidiff_tpu_torch.ops import gate
+    from lidiff_tpu_torch.utils import prof
+    from lidiff_tpu_torch.diffusion.dpm_solver import make_dpm_solver
+    from lidiff_tpu_torch.models import diffusion
+    s = sampling_inputs(steps, dev)
+    t = int(make_dpm_solver("linear", 1000, steps, 3.5e-5, 0.007,
+                            device=dev).timesteps[0])
+    del s.task, s.pyr, s.pyr_c
+
+    def per_voxel(module, feats, geom, rows, bank, temp_emb):
+        G = rows.shape[1]
+        match = torch.where(geom.mask[:, None, None], bank[rows.long()], 0)
+        return module(feats, geom, match[:, 0] if G == 1 else match,
+                      temp_emb, G)
+
+    table_path = minkunet.StageGate.apply_table
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for dt, tol in ((torch.bfloat16, GATE_EPS_BF16_TOL),
+                        (torch.float32, GATE_EPS_F32_TOL)):
+            task = diffusion.DiffusionTask(s.cfg, device=dev,
+                                           compute_dtype=dt, seed=0)
+            banks = task.encode_banks(s.part)
+            launches = gate._apply_kernel.launches
+            before = dict(gate.counters)
+            with prof.trace() as p:
+                eps = task.denoise_pair(s.noisy, *banks, t)
+                _sync(dev)
+            n = gate._apply_kernel.launches - launches
+            rows = {k: gate.counters[k] - before[k] for k in before}
+            # in the trace: GA's kernels, and the gate spans on the host
+            traced = sum(1 for e in p.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "gate_apply_kernel" in e.name)
+            spans = sum(1 for e in p.events()
+                        if e.name == "lidiff.model.gate"
+                        and e.device_type != torch.autograd.DeviceType.CUDA)
+            try:
+                minkunet.StageGate.apply_table = per_voxel
+                ref = task.denoise_pair(s.noisy, *banks, t)
+            finally:
+                minkunet.StageGate.apply_table = table_path
+            top = float(ref.float().abs().max())
+            err = float((eps.float() - ref.float()).abs().max()) / top
+            share = rows["table_rows"] / rows["gated_rows"]
+            log(f"gate tables against per-voxel gates, {dt}, t={t}: max|diff| "
+                f"{err:.3e} of max|eps| {top:.3f} (limit {tol:.3e}); GA "
+                f"launches {n} ({traced} in the trace, {spans} "
+                f"lidiff.model.gate spans), tables {rows['table_calls']} of "
+                f"{rows['table_rows']} rows for {rows['gated_rows']} gated "
+                f"rows ({share:.4f})")
+            if dev == "cuda" and not n == traced == 8:
+                raise AssertionError(f"GA: {n} launches a denoiser call, "
+                                     f"{traced} in its trace, expected 8")
+            if spans != 8:
+                raise AssertionError(f"{spans} lidiff.model.gate spans in "
+                                     f"a denoiser call, expected 8")
+            if rows["table_calls"] != 8 or not share < 0.1:
+                raise AssertionError("the gate tables' rows are not under a "
+                                     "tenth of the gated rows")
+            if not err <= tol:
+                raise AssertionError(f"{dt} eps through the gate tables "
+                                     f"differs from per-voxel gates")
+            del task, banks, eps, ref
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
 def check_gather_form(pyr, dev):
     """The gather-form kernel-map API on the sampling pyramid, with the
     launch counts of its run: (a) `build_kernel_map` at every level against
@@ -1208,7 +1379,7 @@ def run_int8_completion(task, x_init, part, solver, out_bf16, bf16_launches,
                              "wrong shape or overflows")
     if dev == "cuda":
         want = {"A1": steps + 2, "A4": bf16_launches["A1"] - steps - 2,
-                **{n: bf16_launches[n] for n in ("B1", "C1", "TG")},
+                **{n: bf16_launches[n] for n in ("B1", "C1", "TG", "GA")},
                 "TG bwd": 0}
         for n, c in want.items():
             if launches[n] != c:
@@ -1267,6 +1438,7 @@ def run_unfused_completion(cfg, x_init, part, noisy, solver, out_fused,
     if dev == "cuda":
         want = {"A1": fused_launches["A1"] + DENOISER_CONVS * steps,
                 "TG": 2 * fused_launches["TG"], "TG bwd": 0,
+                "GA": 2 * fused_launches["GA"],
                 **{n: fused_launches[n]
                    for n in ("B1", "B1 taps", "C1", "C1 scan", "C1 index")}}
         for n, c in want.items():
@@ -1394,7 +1566,8 @@ def phase_sampling(steps: int, dev: str):
     # per guided step one match per level and bank, the uncond bank's a
     # scan; one index per bank and completion
     want = {"C1": 10 * steps, "C1 scan": 5 * steps, "C1 index": 2,
-            "BN": 0, "BN bwd": 0}     # eval mode: BatchNorm folded
+            "BN": 0, "BN bwd": 0,     # eval mode: BatchNorm folded
+            "GA": 8 * steps}          # a gate table per gate and call
     if dev == "cuda" and any(launches[n] != c for n, c in want.items()):
         raise AssertionError(f"completion launches {launches}, expected "
                              f"{want}")
@@ -1656,7 +1829,7 @@ def diffusion_steps(task, cfg, batch, kernels, dev, what: str, remat: bool,
         kernels, dev, what, "loss",
         {"A3": CONVS_PER_STEP, "A2": CONVS_PER_STEP - 2,
          "A1": 2 * CONVS_PER_STEP - 2 + extra, "C1": 5, "C1 index": 1,
-         "TG": ups * (2 if remat else 1), "TG bwd": ups},
+         "TG": ups * (2 if remat else 1), "TG bwd": ups, "GA": 0},
         describe, draws=draws)
     if any(overflow):
         raise AssertionError(f"{what}: capacity overflow on the input")
@@ -3023,6 +3196,12 @@ def phase_bn(steps: int, dev: str):
     return check_masked_bn(dev), {}
 
 
+def phase_gate(steps: int, dev: str):
+    res = {"GA": check_gate_apply(dev)}
+    check_gate_denoise(steps, dev)
+    return res, {}
+
+
 def phase_fps(steps: int, dev: str):
     return {"F1": check_f1(dev)}, {}
 
@@ -3030,7 +3209,7 @@ def phase_fps(steps: int, dev: str):
 # name: fn(steps, dev) -> ({kernel: result for the kernels line},
 # {path: launches}), in the order a whole run takes them
 PHASES = {"kernels": phase_kernels, "tg": phase_tg, "bn": phase_bn,
-          "fps": phase_fps, "parity": phase_parity,
+          "gate": phase_gate, "fps": phase_fps, "parity": phase_parity,
           "sampling": phase_sampling, "training": phase_training,
           "ddp": phase_ddp, "c2": phase_c2, "refiner": phase_refiner,
           "pipeline": phase_pipeline, "clis": phase_clis,
@@ -3120,7 +3299,10 @@ def main(argv=None) -> int:
                "none: XLA's fusion, lidiff_tpu/models/blocks.py:67-100",
                "refiner training"),
         "BN bwd": ("masked_bn", "none: XLA's fusion of its transpose",
-                   "refiner training")}
+                   "refiner training"),
+        "GA": ("gate_apply",
+               "none: XLA's per-voxel gate MLPs, "
+               "lidiff_tpu/models/minkunet.py:83-122", "sampling")}
     def launches(path: str) -> dict:
         return paths[path if path in paths else args.phase]
 
@@ -3128,9 +3310,10 @@ def main(argv=None) -> int:
         # the plan's taps: a second entry point of B1's source
         res["B1"]["taps_launches"] = launches("sampling")["B1 taps"]
     for path, names in (
-            ("sampling", ("A1", "B1", "B1 taps", "C1", "TG")),
-            ("sampling unfused", ("A1", "B1", "B1 taps", "C1", "TG")),
-            ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1", "TG")),
+            ("sampling", ("A1", "B1", "B1 taps", "C1", "TG", "GA")),
+            ("sampling unfused", ("A1", "B1", "B1 taps", "C1", "TG", "GA")),
+            ("int8 sampling", ("A1", "A4", "B1", "B1 taps", "C1", "TG",
+                               "GA")),
             ("gather form", ("A1", "B1")),
             ("training", ("A1", "A2", "A3", "B1", "B1 taps", "C1", "TG",
                           "TG bwd", "BN", "BN bwd")),
@@ -3142,10 +3325,11 @@ def main(argv=None) -> int:
             (f"refiner training at batch {REFINE_BATCH}",
              ("A1", "A2", "A3", "B1", "B1 taps", "C2", "TG", "TG bwd", "BN",
               "BN bwd")),
-            ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1", "TG")),
+            ("pipeline", ("A4", "B1", "B1 taps", "C1", "F1", "TG", "GA")),
             ("ptv3 training", ("A1 xCPE", "A2 xCPE", "A3 xCPE", "SC", "BN",
                                "BN bwd")),
             ("tg", ("TG", "TG bwd")), ("bn", ("BN", "BN bwd")),
+            ("gate", ("GA",)),
             ("fps", ("F1",))):
         if path not in paths:
             continue

@@ -11,6 +11,12 @@ slice back to the points and the head keep theirs, as in
 lidiff_tpu/models/minkunet.py:69,157-159,240-242. Eval mode never
 rematerializes.
 
+The conditioning gates run per voxel in train mode, as the JAX module does.
+In eval mode the 1-NN matches give bank rows, and each gate evaluates its
+MLPs once per (batch item, bank row) pair into a table that `ops/gate.py`
+`gate_apply` indexes per voxel (kernel GA on the card): the same
+operations on the same values, computed once per distinct input.
+
 Channel plan cs = [32, 32, 64, 128, 256, 256, 128, 96, 96] scaled by `cr`.
 `conv_quant` selects the int8 eval conv (kernel A4) for every eval column
 conv with Cin >= 32 (`lidiff_tpu_torch.ops.sparse_conv`).
@@ -26,8 +32,11 @@ from torch import nn
 
 from lidiff_tpu_torch.models.blocks import (MLP, DownStage, Stem, UpStage,
                                            remat)
+from lidiff_tpu_torch.ops.gate import counters as gate_counters
+from lidiff_tpu_torch.ops.gate import gate_apply
 from lidiff_tpu_torch.ops.grid import Pyramid, VoxelGeom, slice_to_points
-from lidiff_tpu_torch.ops.knn import match_features
+from lidiff_tpu_torch.ops.knn import match_features, nn_match
+from lidiff_tpu_torch.utils import prof
 
 CS = (32, 32, 64, 128, 256, 256, 128, 96, 96)
 
@@ -88,7 +97,9 @@ class MinkGlobalEnc(_Stages):
 class StageGate(nn.Module):
     """Per-voxel conditioning gate w = latemp(cat(latent(match), temp(t))).
     `swap` concatenates (t, p), the reference's up1 order. With G groups,
-    `match` is [V, G, c4] and feats [V, G*C]; the MLPs are shared."""
+    `match` is [V, G, c4] and feats [V, G*C]; the MLPs are shared.
+    `forward` gates each voxel through the MLPs (training); `apply_table`
+    is the eval form."""
 
     def __init__(self, gate_out: int, latemp_hidden: int, c4: int,
                  temb_dim: int, swap: bool = False,
@@ -119,6 +130,26 @@ class StageGate(nn.Module):
                         0.0)
         return (feats.reshape(V, groups, -1)
                 * w.reshape(V, groups, -1)).reshape(V, -1)
+
+    def apply_table(self, feats, geom: VoxelGeom, rows, bank, temp_emb):
+        """`forward` with match = bank[rows] (zeros off the mask), computed
+        as in eval mode: a voxel's gate depends only on its matched bank
+        row, its item and t, so the MLPs run once per (item, bank row)
+        pair, the same operations on the same values as per voxel, and
+        `ops/gate.py` `gate_apply` takes each voxel's row of that table.
+        rows [V, G] int32 indexes bank [Nb, c4]; temp_emb [B, temb]."""
+        with prof.annotate("lidiff.model.gate"):
+            p = self.latent(bank)                          # [Nb, c4]
+            t_emb = self.temp(temp_emb)                    # [B, c4]
+            B, Nb = t_emb.shape[0], p.shape[0]
+            pb = p[None].expand(B, Nb, -1)
+            tb = t_emb[:, None].expand(B, Nb, -1)
+            table = self.latemp(torch.cat([tb, pb] if self.swap else [pb, tb],
+                                          dim=-1)).to(feats.dtype)
+            gate_counters["table_calls"] += 1
+            gate_counters["table_rows"] += B * Nb
+            return gate_apply(feats, table.reshape(B * Nb, -1), rows,
+                              geom.coords, geom.mask, Nb)
 
 
 class MinkUNetDiff(_Stages):
@@ -175,34 +206,54 @@ class MinkUNetDiff(_Stages):
         # one 1-NN match per level and bank, shared by the down and up
         # stages on that level; each bank's index is built once and kept
         nb = pyr.point2voxel.shape[0]
+        if self.training:
+            def level_match(l):
+                ms = [match_features(l.geom.coords, l.geom.mask, pg.coords,
+                                     pg.mask, pf, n_batch=nb,
+                                     compute_dtype=cd, index=pg.nn_index(nb))
+                      for pf, pg in banks]
+                return ms[0] if G == 1 else torch.stack(ms, dim=1)
+            match = [level_match(l) for l in lv]
 
-        def level_match(l):
-            ms = [match_features(l.geom.coords, l.geom.mask, pg.coords,
-                                 pg.mask, pf, n_batch=nb, compute_dtype=cd,
-                                 index=pg.nn_index(nb))
-                  for pf, pg in banks]
-            return ms[0] if G == 1 else torch.stack(ms, dim=1)
-        match = [level_match(l) for l in lv]
+            def gate_at(module, x, i):
+                return module(x, lv[i].geom, match[i], temp, G)
+        else:
+            # eval: the matches give rows of the banks stacked into one,
+            # and each gate is a table over (item, bank row) pairs
+            bank = torch.cat([pf for pf, _ in banks])
+
+            def level_rows(l):
+                rs, start = [], 0
+                for pf, pg in banks:
+                    r = nn_match(l.geom.coords, pg.coords, pg.mask, nb,
+                                 l.geom.mask, pg.nn_index(nb))
+                    rs.append(r + start if start else r)
+                    start += pf.shape[0]
+                return torch.stack(rs, dim=1)
+            rows = [level_rows(l) for l in lv]
+
+            def gate_at(module, x, i):
+                return module.apply_table(x, lv[i].geom, rows[i], bank, temp)
 
         # the stem input is the same for every group: run it once, tile
         x0 = self.Stem_0(vox_feats, lv[0])
         x0 = x0.repeat(1, G)
-        g0 = self.gate_s1(x0, lv[0].geom, match[0], temp, G)
+        g0 = gate_at(self.gate_s1, x0, 0)
         x1 = self.stage(self.DownStage_0, g0, lv[0], lv[1], G)
-        g1 = self.gate_s2(x1, lv[1].geom, match[1], temp, G)
+        g1 = gate_at(self.gate_s2, x1, 1)
         x2 = self.stage(self.DownStage_1, g1, lv[1], lv[2], G)
-        g2 = self.gate_s3(x2, lv[2].geom, match[2], temp, G)
+        g2 = gate_at(self.gate_s3, x2, 2)
         x3 = self.stage(self.DownStage_2, g2, lv[2], lv[3], G)
-        g3 = self.gate_s4(x3, lv[3].geom, match[3], temp, G)
+        g3 = gate_at(self.gate_s4, x3, 3)
         x4 = self.stage(self.DownStage_3, g3, lv[3], lv[4], G)
 
-        g4 = self.gate_u1(x4, lv[4].geom, match[4], temp, G)
+        g4 = gate_at(self.gate_u1, x4, 4)
         y1 = self.stage(self.UpStage_0, g4, x3, lv[3], G)
-        g5 = self.gate_u2(y1, lv[3].geom, match[3], temp, G)
+        g5 = gate_at(self.gate_u2, y1, 3)
         y2 = self.stage(self.UpStage_1, g5, x2, lv[2], G)
-        g6 = self.gate_u3(y2, lv[2].geom, match[2], temp, G)
+        g6 = gate_at(self.gate_u3, y2, 2)
         y3 = self.stage(self.UpStage_2, g6, x1, lv[1], G)
-        g7 = self.gate_u4(y3, lv[1].geom, match[1], temp, G)
+        g7 = gate_at(self.gate_u4, y3, 1)
         y4 = self.stage(self.UpStage_3, g7, x0, lv[0], G)
 
         pt = slice_to_points(y4, pyr.point2voxel)         # [B, N, G*C]

@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("kmap3_columns", "conv3_columns", "conv3_columns_dw",
            "conv3_columns_q", "nn_match", "nn_match_tiled", "fps",
-           "transpose_gather", "serial_codes", "masked_bn")
+           "transpose_gather", "serial_codes", "masked_bn", "gate_apply")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -44,7 +44,13 @@ held to the eager code on the same tensors in float32 and bf16, at widths
 residual + ReLU), at the tolerances stated at each test (sum order; in
 bf16 the closed-form backward); two calls, and a one-rank NCCL group, give
 the same bits; a small refiner step takes the fused path at every
-BatchNorm."""
+BatchNorm.
+GA (the eval gate's apply step, `ops/gate.py`, `csrc/gate_apply.cu`) is
+held to `gate_apply_plain` bit for bit in bf16 and float32 at the
+sampling path's gate widths, G = 1 and 2, with masked rows whose items and
+bank rows are out of range, and at an unaligned address; one small guided
+denoise gates through the tables with 8 launches, and matches per-voxel
+gates at the tolerances stated in its test."""
 
 import math
 
@@ -998,3 +1004,134 @@ def test_masked_bn_refiner_step_takes_the_fused_path(dev):
         [96, 96, 96, 49, 49]
     assert all(torch.isfinite(p.grad).all()
                for p in task.model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# GA: the eval gate's apply step (`ops/gate.py`, `csrc/gate_apply.cu`)
+# ---------------------------------------------------------------------------
+
+def _gate_args(dev, dtype, V, G, C, n_bank, B=2, seed=0):
+    """feats, table, rows, coords, mask; 30% of the rows masked, their
+    items and bank rows out of range (the kernel must not read them)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand(V, generator=gen, device=dev) < 0.7
+    coords = torch.randint(0, B, (V, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+    rows = torch.randint(0, n_bank, (V, G), generator=gen, device=dev,
+                         dtype=torch.int32)
+    coords[~mask, 0] = -3
+    rows[~mask] = n_bank + 100
+    feats = torch.randn(V, G * C, generator=gen, device=dev).to(dtype)
+    table = torch.randn(B * n_bank, C, generator=gen, device=dev).to(dtype)
+    return feats, table, rows, coords, mask, n_bank
+
+
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("C", [32, 64, 96, 128, 256, 12])
+def test_gate_apply(dev, dtype, G, C):
+    """GA against `gate_apply_plain` bit for bit: the product in float32
+    rounded once, the masked rows feats * 0 (-0 where feats < 0); C = 12
+    takes 4-channel vectors in bf16."""
+    from lidiff_tpu_torch.ops import gate
+    args = _gate_args(dev, dtype, 1001, G, C, 37)
+    launches = gate._apply_kernel.launches
+    out = gate.gate_apply(*args)
+    assert gate._apply_kernel.launches == launches + 1
+    assert _same_bits(out, gate.gate_apply_plain(*args))
+
+
+def test_gate_apply_unaligned(dev):
+    """feats and out at an address 2 bytes past 16: one channel a thread,
+    the same bits."""
+    from lidiff_tpu_torch.ops import gate
+    feats, *rest = _gate_args(dev, torch.bfloat16, 300, 2, 32, 11)
+    buf = torch.empty(feats.numel() + 1, dtype=feats.dtype, device=dev)
+    off = buf[1:].view(feats.shape)
+    off.copy_(feats)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    assert _same_bits(gate.gate_apply(off, *rest),
+                      gate.gate_apply_plain(feats, *rest))
+
+
+def test_gate_apply_rejects_bad_input(dev):
+    from lidiff_tpu_torch.ops import gate
+    feats, table, rows, coords, mask, nb = _gate_args(dev, torch.bfloat16,
+                                                      64, 2, 32, 5)
+    bad = [
+        (feats.half(), table.half(), rows, coords, mask, nb),
+        (feats, table.float(), rows, coords, mask, nb),
+        (feats, table, rows.long(), coords, mask, nb),
+        (feats, table, rows, coords.long(), mask, nb),
+        (feats, table, rows, coords, mask.int(), nb),
+        (feats, table, rows, coords[:, :3].contiguous(), mask, nb),
+        (feats, table, rows, coords, mask[:-1], nb),
+        (feats[:, :48].contiguous(), table, rows, coords, mask, nb),
+        (feats, table, rows, coords, mask, 3),
+        (feats, table, rows, coords, mask, 0),
+        (feats.t().contiguous().t(), table, rows, coords, mask, nb),
+        (feats, table.cpu(), rows, coords, mask, nb)]
+    for case in bad:
+        with pytest.raises(ValueError):
+            gate.gate_apply(*case)
+
+
+def test_denoise_pair_gates_by_table(dev, monkeypatch):
+    """One guided denoise on the card (small config, G = 2) launches GA
+    once per gate (8), its tables hold under a tenth of the gated rows,
+    and its eps matches per-voxel gates on the same weights and inputs
+    (deterministic algorithms: the down conv's adds in a fixed order):
+    float32 within test_torch_sampling.py's guided-eps tolerance, 13e-4 of
+    max(1, max|eps|); bf16 within 2^-5 of max|eps|, where a gate value
+    rounded the other way moves the eps through about 40 bf16 layers and
+    the guidance's 2w + 1 = 13."""
+    import chip_smoke
+    from lidiff_tpu_torch import config as cfg_mod
+    from lidiff_tpu_torch.models import diffusion, minkunet
+    from lidiff_tpu_torch.ops import gate
+    caps = {"full_capacities": [4096] * 3 + [3072, 2048],
+            "part_capacities": [512] * 5}
+    cfg = cfg_mod.finalize_config(chip_smoke.make_cfg(4000, 2, cr=0.25,
+                                                      caps=caps))
+    part = torch.from_numpy(chip_smoke.ring_scan(400, seed=3)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = part.repeat(1, 10, 1) + 0.5 * torch.randn(1, 4000, 3, generator=gen,
+                                                  device=dev)
+
+    def per_voxel(module, feats, geom, rows, bank, temp_emb):
+        match = torch.where(geom.mask[:, None, None], bank[rows.long()], 0)
+        return module(feats, geom, match, temp_emb, rows.shape[1])
+
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            task = diffusion.DiffusionTask(cfg, device=dev,
+                                           compute_dtype=dtype, seed=2)
+            banks = task.encode_banks(part)
+            launches, before = gate._apply_kernel.launches, \
+                dict(gate.counters)
+            eps = task.denoise_pair(x, *banks, 500)
+            assert gate._apply_kernel.launches - launches == 8
+            assert gate.counters["table_calls"] - before["table_calls"] == 8
+            share = (gate.counters["table_rows"] - before["table_rows"]) / \
+                (gate.counters["gated_rows"] - before["gated_rows"])
+            assert share < 0.1, share
+            with monkeypatch.context() as m:
+                m.setattr(minkunet.StageGate, "apply_table", per_voxel)
+                ref = task.denoise_pair(x, *banks, 500)
+            top = float(ref.float().abs().max())
+            tol = 13e-4 * max(1.0, top) if dtype == torch.float32 \
+                else 2.0 ** -5 * top
+            err = float((eps.float() - ref.float()).abs().max())
+            assert err <= tol, (dtype, err, tol)
+            assert top > 0.1
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
